@@ -8,25 +8,40 @@ order:
 1. device: name, ``nvidia-smi`` name and power limit, TF32 switches (off);
 2. builds the CUDA kernels from ``detectax_torch/kernels/csrc`` and loads
    them;
-3. holds each kernel against its plain PyTorch version on the card, exact
-   match, at the shapes of the main path and on inputs (numpy, seeded) with
-   heavy overlap, exact score ties, duplicates, degenerate boxes and
-   padding; times kernel and plain version with CUDA events;
-4. drives the main path at full width: FCOS, ResNet-50 + FPN, 20 classes,
-   384 px, fp32, seeded weights, through `Predictor` with buckets (1, 8) —
-   once with the default NMS (fused dense kernel) and once with
+3. holds each kernel against its plain PyTorch version on the card, at the
+   shapes of the main paths: the two NMS kernels to an exact match on
+   inputs (numpy, seeded) with heavy overlap, exact score ties,
+   duplicates, degenerate boxes and padding; the focal-loss kernel
+   (forward sum rtol 2e-4, dlogits atol 1e-5, two runs bitwise equal) at
+   the five level shapes, with a weight mask, with logits of +-100, and
+   on a strided view; times kernels and plain versions with CUDA events;
+4. drives the serving path at full width: FCOS, ResNet-50 + FPN, 20
+   classes, 384 px, fp32, seeded weights, through `Predictor` with buckets
+   (1, 8) — once with the default NMS (fused dense kernel) and once with
    combined-NMS candidates (top-k + sweep kernel) — and checks launch
    counts, shapes, finiteness and equality with the same path run on the
    kernels' plain versions;
-5. prints one JSON line ``{"kernels": [...]}`` and, last, the ``ok`` line.
+5. drives the training path at the same width, batch 16: 5 steps through
+   `make_train_step` with `fcos_assign`, `fcos_loss`, SGD-momentum and
+   clip 1.0 on the kernel path, the same 5 steps from the same initial
+   state on the plain versions, and one microbatched step; checks launch
+   counts, finiteness, agreement of the two paths, and that BatchNorm
+   statistics moved;
+6. trains 4 steps through the command-line entry point
+   `detectax_torch.cli.train_fcos` on the synthetic dataset, restores the
+   checkpoint it wrote and serves one 8-image request from it;
+7. prints one JSON line ``{"kernels": [...]}`` and, last, the ``ok`` line.
 
 It imports `detectax_torch` only — nothing of JAX or of `detectax`.
 """
 from __future__ import annotations
 
+import functools
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -36,9 +51,19 @@ from detectax_torch import runtime
 from detectax_torch.infer.export import fcos_decode_fn, make_serving_fn
 from detectax_torch.infer.serving import Predictor
 from detectax_torch.kernels import _common as kcommon
+from detectax_torch.kernels import focal as KF
 from detectax_torch.kernels import nms as K
 from detectax_torch.kernels.probe import barrier_probe
 from detectax_torch.models import FCOS
+from detectax_torch.ops.assign import fcos_assign
+from detectax_torch.train.driver import restore_for_inference
+from detectax_torch.train.loop import create_train_state, make_train_step
+from detectax_torch.train.losses import fcos_loss
+from detectax_torch.train.schedules import (
+    exponential_with_floor,
+    global_norm,
+    make_optimizer,
+)
 
 SEED = 0
 DEV = torch.device("cuda", 0)
@@ -55,11 +80,30 @@ SWEEP_FLOPS_PER_PAIR = 14
 DENSE_FLOPS_PER_CANDIDATE_ROUND = SWEEP_FLOPS_PER_PAIR + 1
 AREA_FLOPS_PER_CANDIDATE = 3
 
+# ... and per element of the focal loss, every call of expf, log1pf, powf
+# and every division counted as one operation like an add: 12 for the
+# shared terms (|x|, two exp, log1p, min, max, p), 12 more for the forward
+# (two pow, the products, the running sum), 18 more for the backward; one
+# more with a weight mask
+FOCAL_FWD_FLOPS = 24
+FOCAL_BWD_FLOPS = 30
+FOCAL_LEVELS = (48, 24, 12, 6, 3)  # h = w of the five levels at 384 px
+FOCAL_BATCH = 16
+# the kernel sums in another order than torch: tolerance of the sum, and
+# of one element of dlogits
+FOCAL_SUM_RTOL, FOCAL_GRAD_ATOL = 2e-4, 1e-5
+
 BOUND_NOTE = (
     "bound_ms is the larger of bytes/3.35e12 and operations/67e12 and "
     "bound_by names which; the chain of dependent rounds is not part of "
     "it: chain_ms = rounds_max x the empty round measured in this run, the "
-    "floor of a one-block-per-image design, stands beside it as its own key")
+    "floor of a one-block-per-image design, stands beside it as its own "
+    "key. focal: launches counts the forward launches of the training "
+    "run (launches_bwd the backward ones); ms, plain_ms and library_ms "
+    "are device times of the forward queued behind a blocker, the "
+    "call_ms keys what a caller on this host sees; an element is charged "
+    "24 operations forward and 30 backward, each transcendental call and "
+    "division counted as one")
 
 BACKBONE, CANVAS, NUM_CLASSES, BUCKETS = "resnet50", 384, 20, (1, 8)
 CANDIDATES = 3069  # 48^2 + 24^2 + 12^2 + 6^2 + 3^2 cells at 384 px
@@ -123,6 +167,35 @@ def time_ms(fn, *, warmup: int, reps: int) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def queued_ms(fn, *, reps: int) -> float:
+    """Mean device milliseconds of one call of a function whose launches
+    are shorter than the host takes to enqueue them: the `reps` calls are
+    queued behind a blocker (large float32 matrix products) so that the
+    device runs them back to back once the host has enqueued them all, and
+    the events around them see no host time. `time_ms` of the same function
+    gives what a caller on this host sees."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    a = torch.ones((8192, 8192), device=DEV)
+    one_ms = time_ms(lambda: a @ a, warmup=1, reps=2)
+    blockers = int(2.0 * host_ms / one_ms) + 2
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for _ in range(blockers):
+        a @ a
     start.record()
     for _ in range(reps):
         fn()
@@ -236,6 +309,128 @@ def check_dense(rng, batch, m, max_outputs):
         "rounds_max": int(rounds.max()),
         "us_per_round": ms * 1e3 / mean_rounds,
     }
+
+
+def library_focal(labels, logits, alpha=0.25, gamma=2.0):
+    """The nearest single PyTorch call family: focal weighting around
+    `binary_cross_entropy_with_logits`. A yardstick for `library_ms`
+    only; nothing in the port calls it."""
+    import torch.nn.functional as F
+    ce = F.binary_cross_entropy_with_logits(logits, labels, reduction="none")
+    p_t = torch.exp(-ce)
+    return ((labels * alpha + (1 - labels) * (1 - alpha))
+            * (1 - p_t) ** gamma * ce).sum()
+
+
+def check_focal(rng, hw, *, case="dense"):
+    """Forward sum and dlogits of the focal kernel against its plain
+    version at one level's shape ``[16, hw, hw, 20]``. `case`: "dense"
+    (contiguous), "weights" (with a 0/1 mask), "extreme" (logits in
+    {-100, -40, 0, 40, 100}), "strided" (the class channels of a
+    25-channel map, read in place)."""
+    shape = (FOCAL_BATCH, hw, hw, NUM_CLASSES)
+    labels = (rng.uniform(size=shape) < 0.01).astype(np.float32)
+    if case == "extreme":
+        logits = rng.choice(
+            np.array([-100, -40, 0, 40, 100], np.float32), size=shape)
+    else:
+        logits = (4.0 * rng.standard_normal(size=shape)).astype(np.float32)
+    z, x = cuda(labels), cuda(logits)
+    w = None
+    if case == "weights":
+        w = cuda((rng.uniform(size=shape[:3] + (1,)) < 0.7)
+                 .astype(np.float32))
+    if case == "strided":
+        def widen(t):
+            wide = torch.zeros(shape[:3] + (5 + NUM_CLASSES,), device=DEV)
+            wide[..., 5:] = t
+            return wide[..., 5:]
+        z, x = widen(z), widen(x)
+        check(not x.is_contiguous(), "strided case is contiguous")
+    name = f"focal {case} hw={hw}"
+
+    def run(fn):
+        xg = x.detach().requires_grad_(True)
+        out = fn(z, xg, weights=w)
+        out.backward()
+        return out.detach(), xg.grad
+
+    got, got_grad = run(KF.focal_loss)
+    again, again_grad = run(KF.focal_loss)
+    torch.cuda.synchronize()
+    want, want_grad = run(KF.focal_loss_plain)
+    closed = KF.focal_grad_plain(z, x, weights=w)
+    check(bool(torch.isfinite(got)) and bool(torch.isfinite(got_grad).all()),
+          f"{name}: non-finite loss or gradient")
+    check(got_grad.shape == x.shape and got.shape == (),
+          f"{name}: wrong output shapes")
+    check(torch.equal(got, again) and torch.equal(got_grad, again_grad),
+          f"{name}: two runs on the same input differ in their bits")
+    sum_rel = float((got - want).abs() / want.abs().clamp_min(1e-30))
+    grad_err = float((got_grad - want_grad).abs().max())
+    closed_err = float((got_grad - closed).abs().max())
+    check(sum_rel <= FOCAL_SUM_RTOL,
+          f"{name}: sum {float(got)} vs plain {float(want)} "
+          f"(rel {sum_rel}, tolerance {FOCAL_SUM_RTOL})")
+    check(max(grad_err, closed_err) <= FOCAL_GRAD_ATOL,
+          f"{name}: dlogits differ by {grad_err} from autograd of the "
+          f"plain version, {closed_err} from the closed form "
+          f"(tolerance {FOCAL_GRAD_ATOL})")
+
+    # Times. The calls are far shorter than the host takes to enqueue them,
+    # so each is timed twice: queued behind a blocker (device time, the
+    # `ms` keys) and in an eager loop (what a caller on this host sees, the
+    # `call_ms` keys). Backward = forward + backward minus forward.
+    xg = x.detach().requires_grad_(True)
+    one = torch.ones((), device=DEV)
+
+    def fwd_bwd(loss_fn):
+        def run():
+            torch.autograd.grad(loss_fn(z, xg, weights=w), xg, one)
+        return run
+
+    def both(fn, reps):
+        return (queued_ms(fn, reps=reps),
+                time_ms(fn, warmup=2, reps=reps))
+
+    with torch.no_grad():
+        ms, call_ms = both(lambda: KF.focal_loss(z, x, weights=w), 50)
+        plain_ms, plain_call_ms = both(
+            lambda: KF.focal_loss_plain(z, x, weights=w), 20)
+        plain_bwd_ms, _ = both(
+            lambda: KF.focal_grad_plain(z, x, weights=w), 20)
+        library_ms = (None if w is not None else
+                      queued_ms(lambda: library_focal(z, x), reps=20))
+    fwd_bwd_ms, fwd_bwd_call_ms = both(fwd_bwd(KF.focal_loss), 50)
+    plain_fwd_bwd_ms, plain_fwd_bwd_call_ms = both(
+        fwd_bwd(KF.focal_loss_plain), 20)
+
+    n = int(np.prod(shape))
+    per_el = 8 + (4 if w is not None else 0)
+    extra = 1 if w is not None else 0
+    bound_ms, bound_by = bound(n * per_el + 4, n * (FOCAL_FWD_FLOPS + extra))
+    bwd_bound_ms, _ = bound(n * (per_el + 4) + 4,
+                            n * (FOCAL_BWD_FLOPS + extra))
+    return {
+        "shape": {"B": FOCAL_BATCH, "h": hw, "w": hw, "classes": NUM_CLASSES,
+                  "case": case},
+        "max_abs_err": max(grad_err, closed_err), "sum_rel_err": sum_rel,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": library_ms,
+        "bwd_ms": fwd_bwd_ms - ms, "fwd_bwd_ms": fwd_bwd_ms,
+        "plain_bwd_ms": plain_bwd_ms, "plain_fwd_bwd_ms": plain_fwd_bwd_ms,
+        "bwd_bound_ms": bwd_bound_ms,
+        "call_ms": call_ms, "fwd_bwd_call_ms": fwd_bwd_call_ms,
+        "plain_call_ms": plain_call_ms,
+        "plain_fwd_bwd_call_ms": plain_fwd_bwd_call_ms,
+    }
+
+
+def check_focal_all(rng):
+    rows = [check_focal(rng, hw) for hw in FOCAL_LEVELS]
+    rows += [check_focal(rng, FOCAL_LEVELS[0], case=c)
+             for c in ("weights", "extreme", "strided")]
+    return rows
 
 
 # --------------------------------------------------------------------------
@@ -407,6 +602,263 @@ def main_path():
 
 
 # --------------------------------------------------------------------------
+# phase 5: the training path
+# --------------------------------------------------------------------------
+
+TRAIN_BATCH, TRAIN_BOXES, TRAIN_STEPS = 16, 16, 5
+PATHS_RTOL = 1e-4  # kernel path against plain path, and split against unsplit
+
+
+def train_batch(seed: int) -> dict:
+    """A seeded numpy batch: normal images, 16 boxes an image around the
+    centre, all valid."""
+    rng = np.random.default_rng(seed)
+    shape = (TRAIN_BATCH, TRAIN_BOXES)
+    boxes = np.zeros(shape + (4,), np.float32)
+    boxes[:, :, 0] = rng.uniform(0.3, 0.7, shape)
+    boxes[:, :, 1] = rng.uniform(0.3, 0.7, shape)
+    boxes[:, :, 2] = rng.uniform(0.05, 0.5, shape)
+    boxes[:, :, 3] = rng.uniform(0.05, 0.5, shape)
+    return {
+        "images": rng.normal(size=(TRAIN_BATCH, CANVAS, CANVAS, 3))
+        .astype(np.float32),
+        "boxes": boxes,
+        "labels": rng.integers(0, NUM_CLASSES, shape).astype(np.int32),
+        "valid": np.ones(shape, bool),
+    }
+
+
+def assign_fn(boxes, labels, valid):
+    return fcos_assign(boxes, labels, valid, img_dim=(CANVAS, CANVAS),
+                       num_classes=NUM_CLASSES)[0]
+
+
+def make_trainer(*, kernels=None, microbatch=None, loss_norm="batch",
+                 freeze_bn=False):
+    """Model (seeded weights, the same on every call), state, step and
+    the optimizer chain."""
+    model = FCOS(num_classes=NUM_CLASSES, backbone=BACKBONE,
+                 freeze_bn=freeze_bn,
+                 generator=torch.Generator().manual_seed(SEED)).to(DEV)
+    opt = make_optimizer("sgd", exponential_with_floor(5e-4), grad_clip=1.0)
+    step = make_train_step(
+        model, assign_fn, functools.partial(fcos_loss, kernels=kernels), opt,
+        microbatch=microbatch, loss_norm=loss_norm)
+    return model, create_train_state(model, None, opt), step, opt
+
+
+def run_steps(state, step, batches):
+    """Per-step metrics (host floats) and device ms (CUDA events)."""
+    metrics, ms = [], []
+    for batch in batches:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, m = step(state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+        metrics.append({k: float(v) for k, v in m.items()})
+    return metrics, ms
+
+
+def profile_steps(state, step, batches) -> dict | None:
+    """Device busy time and idle share of a few train steps by
+    `torch.profiler` (the kernels' own times summed against the steps'
+    time under the profiler, which is slower than without it). None when
+    the profiler saw no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, ms = run_steps(state, step, batches)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy <= 0:
+        return None
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    n = len(batches)
+    return {
+        "steps": n, "step_ms_under_profiler": ms,
+        "device_busy_ms_per_step": busy / n,
+        "idle_share": 1.0 - busy / sum(ms),
+        "kernel_launches_per_step": sum(e.count for e in kernels) / n,
+        "top_kernels_ms_per_step": [
+            [e.key[:70], e.self_device_time_total / 1e3 / n, e.count // n]
+            for e in kernels[:8]],
+    }
+
+
+def close(a: float, b: float, rtol: float) -> bool:
+    return abs(a - b) <= rtol * max(abs(a), abs(b))
+
+
+def train_path():
+    batches = [{k: cuda(v) for k, v in train_batch(SEED + 10 + i).items()}
+               for i in range(TRAIN_STEPS)]
+    _, state, step, _ = make_trainer()
+    run_steps(state, step, batches[:1])       # warm-up: cuDNN picks plans
+    del state, step
+    model, state, step, _ = make_trainer()
+    stem_bn = next(m for m in model.modules() if hasattr(m, "running_mean"))
+    mean0 = stem_bn.running_mean.clone()
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- the counted run: counts set to 0 just before, read just after
+    kcommon.reset_launch_counts()
+    t0 = time.perf_counter()
+    metrics, step_ms = run_steps(state, step, batches)
+    wall = time.perf_counter() - t0
+    counts = kcommon.launch_counts()
+    # ----
+    peak = torch.cuda.max_memory_allocated()
+
+    check(state.step == TRAIN_STEPS, f"step count {state.step}")
+    for i, m in enumerate(metrics):
+        check(all(np.isfinite(v) for v in m.values()),
+              f"training step {i + 1}: non-finite metric {m}")
+    levels = len(FOCAL_LEVELS)
+    check(counts.get("focal_fwd", 0) == levels * TRAIN_STEPS,
+          f"training launched focal_fwd {counts.get('focal_fwd', 0)} times, "
+          f"expected {levels} a step = {levels * TRAIN_STEPS}")
+    check(counts.get("focal_bwd", 0) == levels * TRAIN_STEPS,
+          f"training launched focal_bwd {counts.get('focal_bwd', 0)} times, "
+          f"expected {levels} a step = {levels * TRAIN_STEPS}")
+    moved = float((stem_bn.running_mean - mean0).abs().max())
+    check(moved > 0, "BatchNorm running statistics did not move")
+
+    # the same steps from the same initial state on the plain versions
+    del model, state, step
+    _, pstate, pstep, _ = make_trainer(kernels="plain")
+    plain_metrics, plain_ms = run_steps(pstate, pstep, batches)
+    check(kcommon.launch_counts() == counts,
+          "the plain training path launched a kernel")
+    agree = {}
+    for key in ("total", "cls", "grad_norm"):
+        a, b = metrics[0][key], plain_metrics[0][key]
+        agree[key] = abs(a - b) / max(abs(a), abs(b))
+        check(close(a, b, PATHS_RTOL),
+              f"step 1 {key}: kernel path {a}, plain path {b} "
+              f"(tolerance rtol {PATHS_RTOL})")
+    del pstate, pstep
+
+    # one step split into chunks of 4 under loss_norm="pos" against the
+    # unsplit step. BatchNorm is frozen for this comparison: with live
+    # statistics a chunk normalizes by its own 4 images, which is another
+    # function than the batch of 16
+    split = {}
+    for micro in (None, 4):
+        _, mstate, mstep, _ = make_trainer(
+            microbatch=micro, loss_norm="pos", freeze_bn=True)
+        m, ms = run_steps(mstate, mstep, batches[:1])
+        split[micro] = (m[0], ms[0])
+        del mstate, mstep
+    for key in ("grad_norm", "total"):
+        a, b = split[4][0][key], split[None][0][key]
+        check(close(a, b, PATHS_RTOL),
+              f"microbatch 4 {key} {a} against the unsplit step's {b} "
+              f"(tolerance rtol {PATHS_RTOL})")
+
+    # where a step's device time goes (separate timings of its parts)
+    model, state, step, opt = make_trainer()
+    b0 = batches[0]
+    with torch.no_grad():
+        y_true = assign_fn(b0["boxes"], b0["labels"], b0["valid"])
+        preds = model(b0["images"], train=True)
+        parts = {
+            "assign": time_ms(lambda: assign_fn(
+                b0["boxes"], b0["labels"], b0["valid"]), warmup=1, reps=5),
+            "forward_no_grad": time_ms(
+                lambda: model(b0["images"], train=True), warmup=1, reps=3),
+            "loss_forward": time_ms(lambda: fcos_loss(y_true, preds),
+                                    warmup=1, reps=5),
+        }
+    grads = [torch.zeros_like(p) for p in model.parameters()]
+    parts["grad_norm"] = time_ms(lambda: global_norm(grads),
+                                 warmup=1, reps=3)
+    norm = global_norm(grads)  # a step computes it once, for both
+    parts["clip_and_update"] = time_ms(
+        lambda: opt.update(state.opt, grads, 0, grad_norm=norm),
+        warmup=1, reps=3)
+    steady = step_ms[1:]
+    parts["backward_and_rest"] = (
+        sum(steady) / len(steady) - sum(parts.values()))
+    profiled = profile_steps(state, step, batches[:2])
+    return counts, {
+        "batch": TRAIN_BATCH, "steps": TRAIN_STEPS,
+        "step_ms": step_ms, "plain_path_step_ms": plain_ms,
+        "step_ms_mean_after_first": sum(steady) / len(steady),
+        "images_per_s": TRAIN_BATCH * TRAIN_STEPS / wall,
+        "peak_memory_bytes": peak,
+        "metrics_step_1": metrics[0], "metrics_last": metrics[-1],
+        "plain_metrics_step_1": plain_metrics[0],
+        "kernel_vs_plain_rel": agree,
+        "microbatch_4": {"grad_norm": split[4][0]["grad_norm"],
+                         "unsplit_grad_norm": split[None][0]["grad_norm"],
+                         "step_ms": split[4][1],
+                         "unsplit_step_ms": split[None][1]},
+        "parts_ms": parts,
+        "profile": profiled if profiled else "not measured",
+        "bn_running_mean_moved": moved,
+    }
+
+
+# --------------------------------------------------------------------------
+# phase 6: the command-line trainer, and serving from its checkpoint
+# --------------------------------------------------------------------------
+
+def cli_path():
+    from detectax_torch.cli import train_fcos
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt_dir = os.path.join(tmp, "ckpt")
+        kcommon.reset_launch_counts()
+        summary = train_fcos.main([
+            "--backbone", BACKBONE, "--canvas", str(CANVAS),
+            "--batch_size", "16", "--max_steps", "4", "--display_step", "2",
+            "--step_save", "4", "--synthetic_n", "64",
+            "--ckpt_dir", ckpt_dir, "--out_dir", os.path.join(tmp, "out"),
+        ])
+        counts = kcommon.launch_counts()
+        check(summary["final_step"] == 4, f"CLI trained {summary}")
+        check(np.isfinite(summary["total"]) and np.isfinite(
+            summary["grad_norm"]), f"CLI metrics not finite: {summary}")
+        check(counts.get("focal_fwd", 0) == 20
+              and counts.get("focal_bwd", 0) == 20,
+              f"CLI training launched {counts}, expected 20 and 20")
+        nc = 3  # the synthetic dataset's classes
+        model = FCOS(num_classes=nc, backbone=BACKBONE).to(DEV)
+        fresh = model.cls_head_1.Conv_0.weight.clone()
+        restore_for_inference(ckpt_dir, model)
+        check(not torch.equal(fresh, model.cls_head_1.Conv_0.weight),
+              "restore left the model's weights as they were")
+    # four steps from the focal prior leave every score near 0.01: serve
+    # with no score threshold so that the request has detections to check
+    fn = make_serving_fn(model, fcos_decode_fn("fcos", CANVAS),
+                         score_thresh=0.0)
+    pred = Predictor.for_model(fn, model, canvas=CANVAS, buckets=BUCKETS,
+                               device=DEV)
+    rng = np.random.default_rng(SEED + 2)
+    images = rng.uniform(-1, 1, size=(8, CANVAS, CANVAS, 3)) \
+        .astype(np.float32)
+    dets = pred.predict(images)
+    check(dets["boxes"].shape == (8, 100, 4)
+          and dets["scores"].shape == (8, 100)
+          and dets["num_valid"].shape == (8,),
+          "request from the checkpoint: wrong output shapes")
+    check(np.isfinite(dets["boxes"]).all()
+          and np.isfinite(dets["scores"]).all(),
+          "request from the checkpoint: non-finite output")
+    check((dets["num_valid"] > 0).all()
+          and (dets["classes"][dets["valid"]] < nc).all(),
+          "request from the checkpoint: no or impossible detections")
+    return {k: summary[k] for k in ("final_step", "images_per_sec", "total",
+                                    "grad_norm")}
+
+
+# --------------------------------------------------------------------------
 
 def main() -> None:
     if not torch.cuda.is_available():
@@ -449,6 +901,9 @@ def main() -> None:
             # longest image, each no more than an empty round
             r["chain_ms"] = r["rounds_max"] * round_us * 1e-3
             log(f"kernel {name} {json.dumps(r)}")
+    focal = check_focal_all(rng)
+    for r in focal:
+        log(f"kernel focal {json.dumps(r)}")
 
     counts, serving, stages = main_path()
     log("serving " + json.dumps({"card": card, "model": f"FCOS {BACKBONE} FPN",
@@ -457,11 +912,26 @@ def main() -> None:
                                  "paths": serving,
                                  "stage_ms": stages}))
 
+    train_counts, training = train_path()
+    log("training " + json.dumps({
+        "card": card, "model": f"FCOS {BACKBONE} FPN", "canvas": CANVAS,
+        "dtype": "float32", "classes": NUM_CLASSES, **training}))
+    log("cli " + json.dumps(cli_path()))
+    counts = {**counts, "focal": train_counts["focal_fwd"]}
+    levels = focal[:len(FOCAL_LEVELS)]
+    focal[0]["launches_bwd"] = train_counts["focal_bwd"]
+    focal[0]["all_levels_fwd_ms"] = sum(r["ms"] for r in levels)
+    focal[0]["all_levels_fwd_bwd_ms"] = sum(r["fwd_bwd_ms"] for r in levels)
+    focal[0]["all_levels_fwd_bwd_call_ms"] = sum(
+        r["fwd_bwd_call_ms"] for r in levels)
+
     meta = {
         "nms_sweep": ("detectax_torch/kernels/csrc/nms_sweep.cu",
                       "detectax/ops/pallas/nms_kernel.py:105", sweep),
         "dense_nms": ("detectax_torch/kernels/csrc/dense_nms.cu",
                       "detectax/ops/pallas/nms_kernel.py:247", dense),
+        "focal": ("detectax_torch/kernels/csrc/focal.cu",
+                  "detectax/ops/pallas/focal.py:75", focal),
     }
     kernels = []
     for name, (source, replaces, rows) in meta.items():

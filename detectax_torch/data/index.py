@@ -1,0 +1,37 @@
+"""Dataset index format: one JSON file listing samples + the class map.
+
+The reading half of `detectax/data/index.py`, as a copy: per-sample image
+path, normalized corner boxes and labels.
+"""
+from __future__ import annotations
+
+import json
+
+
+def load_index(path: str):
+    with open(path) as f:
+        data = json.load(f)
+    return data["classes"], data["samples"]
+
+
+class IndexDataset:
+    """Map-style dataset over an index JSON, for `data.pipeline.Loader`."""
+
+    def __init__(self, index_path: str):
+        self.classes, self.samples = load_index(index_path)
+        self.id_to_label = {i: c for i, c in enumerate(self.classes)}
+
+    @property
+    def num_classes(self) -> int:
+        return len(self.classes)
+
+    def __len__(self):
+        return len(self.samples)
+
+    def __getitem__(self, idx: int):
+        s = self.samples[idx]
+        return {
+            "image_path": s["image_path"],
+            "boxes_xyxy": s["boxes_xyxy"],
+            "labels": s["labels"],
+        }

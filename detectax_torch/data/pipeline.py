@@ -1,15 +1,23 @@
-"""Host-side image preparation for serving: decode → resize/pad onto the
-canvas → normalize.
+"""Host input pipeline: decode → augment → resize/pad-to-canvas → batch.
 
-The part of `detectax/data/pipeline.py` that serving needs, as a copy (the
-port imports nothing of the JAX package): both resize paths — the
-aspect-preserving resize-and-pad and the fixed square stretch — and the
-three pixel normalizations (`tf`: /127.5-1, `unit`: /255, `none`). The
-training-side loader, augmentation and GT padding wait for the training
-path. PIL is imported where a file is decoded or an image resized, so the
-module imports on a machine without it.
+Copy of `detectax/data/pipeline.py` (numpy and PIL only; the port imports
+nothing of the JAX package): both resize paths — the aspect-preserving
+resize-and-pad and the fixed square stretch — the three pixel
+normalizations (`tf`: /127.5-1, `unit`: /255, `none`), random horizontal
+flip and the joint photometric / geometric augmentation with their box
+remaps, GT padding to ``max_boxes`` with a validity mask, and the batched,
+host-sharded, prefetching `Loader`. Boxes come out canvas-normalized
+``(y_cen, x_cen, h, w)``, so on-device assignment runs with
+``img_dim == img_pad == canvas``. The same seed gives the same batches as
+the JAX package's loader on its PIL path; its native C++ decode path is
+not ported. PIL is imported where a file is decoded or an image resized,
+so the module imports on a machine without it.
 """
 from __future__ import annotations
+
+import queue
+import threading
+from typing import Iterator
 
 import numpy as np
 
@@ -42,6 +50,73 @@ def _resize(img: np.ndarray, out_hw: tuple[int, int]) -> np.ndarray:
     pil = Image.fromarray(np.clip(img, 0, 255).astype(np.uint8))
     pil = pil.resize((out_hw[1], out_hw[0]), Image.BILINEAR)
     return np.asarray(pil, dtype=np.float32)
+
+
+def flip_horizontal(img: np.ndarray, boxes_xyxy: np.ndarray):
+    """Mirror the image and remap normalized corner boxes."""
+    img = img[:, ::-1, :]
+    if len(boxes_xyxy):
+        boxes_xyxy = np.stack(
+            [
+                1.0 - boxes_xyxy[:, 2],
+                boxes_xyxy[:, 1],
+                1.0 - boxes_xyxy[:, 0],
+                boxes_xyxy[:, 3],
+            ],
+            axis=-1,
+        )
+    return img, boxes_xyxy
+
+
+def augment_photometric_geometric(
+    img: np.ndarray,
+    boxes_xyxy: np.ndarray,
+    rng: np.random.Generator,
+    p_augment: float = 0.5,
+    brightness: float = 0.25,
+    contrast: tuple[float, float] = (0.75, 1.25),
+):
+    """Joint image+box augmentation.
+
+    With probability `p_augment`, apply ONE of
+    (a) photometric — random brightness delta or contrast rescale,
+    (b) horizontal flip, (c) 90/270-degree rotation — with the box remap
+    done on normalized corners (the reference rotated its pre-rendered
+    label maps instead; ours are assigned after augmentation).
+    Pixel values are 0..255 floats here; brightness delta is scaled
+    accordingly (the reference's images were 0..1 at this point).
+    """
+    if rng.uniform() >= p_augment:
+        return img, boxes_xyxy
+    choice = rng.uniform()
+    if choice <= 1.0 / 3.0:
+        if rng.uniform() <= 0.5:
+            delta = rng.uniform(-brightness, brightness) * 255.0
+            img = np.clip(img + delta, 0.0, 255.0)
+        else:
+            c = rng.uniform(contrast[0], contrast[1])
+            mean = img.mean(axis=(0, 1), keepdims=True)
+            img = np.clip((img - mean) * c + mean, 0.0, 255.0)
+        return img, boxes_xyxy
+    if choice <= 2.0 / 3.0:
+        return flip_horizontal(img, boxes_xyxy)
+    # transpose = rot90 with x/y swap; optional up-down flip = rot270
+    img = np.ascontiguousarray(np.transpose(img, (1, 0, 2)))
+    if len(boxes_xyxy):
+        boxes_xyxy = boxes_xyxy[:, [1, 0, 3, 2]]
+    if rng.uniform() >= 0.5:
+        img = img[::-1, :, :]
+        if len(boxes_xyxy):
+            boxes_xyxy = np.stack(
+                [
+                    boxes_xyxy[:, 0],
+                    1.0 - boxes_xyxy[:, 3],
+                    boxes_xyxy[:, 2],
+                    1.0 - boxes_xyxy[:, 1],
+                ],
+                axis=-1,
+            )
+    return img, boxes_xyxy
 
 
 def normalize_pixels(img: np.ndarray, mode: str) -> np.ndarray:
@@ -160,3 +235,241 @@ def place_on_canvas(
     return place_content_on_canvas(
         content, boxes_xyxy, canvas, pad_position=pad_position
     )
+
+
+def pad_gt(boxes_yxhw: np.ndarray, labels: np.ndarray, max_boxes: int):
+    n = min(len(boxes_yxhw), max_boxes)
+    b = np.zeros((max_boxes, 4), np.float32)
+    l = np.zeros((max_boxes,), np.int32)
+    v = np.zeros((max_boxes,), bool)
+    if n:
+        b[:n] = boxes_yxhw[:n]
+        l[:n] = labels[:n]
+        v[:n] = True
+    return b, l, v
+
+
+class Loader:
+    """Batched, host-sharded, prefetching loader over a map-style dataset.
+
+    Dataset items are dicts with either ``image`` (HWC array) or
+    ``image_path``, plus ``boxes_xyxy`` (normalized corners, x1y1x2y2) and
+    ``labels``.
+    """
+
+    def __init__(
+        self,
+        dataset,
+        batch_size: int,
+        canvas: int | tuple[int, int] = 512,
+        max_boxes: int = 64,
+        *,
+        mode: str = "resize_pad",
+        pad_position: str = "topleft",
+        jitter: tuple[float, float] | None = None,
+        jitter_per_batch: bool = False,
+        flip: bool = True,
+        augment: str = "none",  # "none" | "hourglass" (photometric/rot90)
+        normalize: str = "tf",
+        shuffle: bool = True,
+        seed: int = 0,
+        num_hosts: int = 1,
+        host_id: int = 0,
+        prefetch: int = 2,
+        steps: int | None = None,
+        emit_uint8: bool = False,
+        workers: int = 4,
+        drop_remainder: bool = True,
+    ):
+        self.ds = dataset
+        self.batch_size = batch_size
+        # canvas: int -> fixed square; tuple -> fixed (h, w); list -> one
+        # square bucket chosen per batch (multi-scale training, reference
+        # train_hourglass_voc_v0.py:73 random train dims)
+        if isinstance(canvas, int):
+            self.canvas_buckets = [(canvas, canvas)]
+        elif isinstance(canvas, tuple):
+            self.canvas_buckets = [canvas]
+        else:
+            self.canvas_buckets = [
+                (c, c) if isinstance(c, int) else tuple(c) for c in canvas
+            ]
+        self.canvas = self.canvas_buckets[0]
+        self.max_boxes = max_boxes
+        self.mode = mode
+        self.pad_position = pad_position
+        # jitter is in PIXEL units in both modes: the content's short side
+        # (resize_pad) or square side (stretch). Reject fractional-looking
+        # values early — jitter=(0.8, 1.0) would silently yield 1-px
+        # content.
+        if jitter is not None:
+            lo, hi = float(jitter[0]), float(jitter[1])
+            if lo > hi:
+                raise ValueError(f"jitter range is reversed: {jitter!r}")
+            if lo < 2.0:
+                raise ValueError(
+                    f"jitter={jitter!r} looks like fractional scale "
+                    "factors; jitter takes absolute pixel side lengths "
+                    "(e.g. (307, 512) for 0.6-1.0x of a 512 canvas)"
+                )
+        self.jitter = jitter
+        # one shared jitter draw per batch (reference CrowdHuman "use only
+        # one image resolution to train", train_centernet_crowdhuman.py:52)
+        # vs. independent per-example draws
+        self.jitter_per_batch = jitter_per_batch
+        self.flip = flip
+        self.augment = augment
+        self.normalize = normalize
+        self.shuffle = shuffle
+        self.seed = seed
+        self.num_hosts = num_hosts
+        self.host_id = host_id
+        self.prefetch = prefetch
+        self.steps = steps
+        self.emit_uint8 = emit_uint8
+        self.workers = workers
+        # drop_remainder=False pads the final partial batch (repeating its
+        # last example) and marks padding via the "example_valid" mask so
+        # single-pass eval covers every image (no silent mAP truncation).
+        self.drop_remainder = drop_remainder
+
+    def _indices(self, rng: np.random.Generator) -> np.ndarray:
+        idx = np.arange(len(self.ds))
+        if self.shuffle:
+            rng.shuffle(idx)
+        return idx[self.host_id:: self.num_hosts]
+
+    def _make_example(self, record: dict, rng: np.random.Generator,
+                      canvas=None, jitter=None):
+        canvas = canvas or self.canvas
+        jitter = jitter if jitter is not None else self.jitter
+        boxes = np.asarray(record["boxes_xyxy"], np.float32)
+        labels = np.asarray(record["labels"], np.int32)
+        do_flip = self.flip and rng.uniform() <= 0.5
+        if self.augment == "hourglass":
+            do_flip = False  # flip is one arm of the joint augment
+
+        img = decode_image(record)
+        if self.augment == "hourglass":
+            img, boxes = augment_photometric_geometric(img, boxes, rng)
+        if do_flip:
+            img, boxes = flip_horizontal(img, boxes)
+        img, boxes_yxhw, _ = place_on_canvas(
+            img, boxes, canvas,
+            mode=self.mode, pad_position=self.pad_position,
+            jitter=jitter, rng=rng,
+        )
+        if self.emit_uint8:
+            # ship uint8 to the device (4x less host->device traffic);
+            # normalization happens inside the train step
+            if img.dtype != np.uint8:
+                img = np.clip(img, 0, 255).astype(np.uint8)
+        else:
+            img = normalize_pixels(img.astype(np.float32), self.normalize)
+        b, l, v = pad_gt(boxes_yxhw, labels, self.max_boxes)
+        return img, b, l, v
+
+    def _batches(self) -> Iterator[dict]:
+        from concurrent.futures import ThreadPoolExecutor
+
+        pool = (
+            ThreadPoolExecutor(max_workers=self.workers)
+            if self.workers > 0 else None
+        )
+        step = 0
+        epoch = 0
+        while True:
+            idx = self._indices(np.random.default_rng((self.seed, epoch)))
+            starts = list(range(0, len(idx) - self.batch_size + 1,
+                                self.batch_size))
+            tail = len(starts) * self.batch_size
+            has_tail = (not self.drop_remainder) and tail < len(idx)
+            if has_tail:
+                starts.append(tail)
+            for s in starts:
+                chunk = idx[s:s + self.batch_size]
+                n_real = len(chunk)
+                if n_real < self.batch_size:  # padded final batch
+                    chunk = np.concatenate(
+                        [chunk,
+                         np.repeat(chunk[-1:], self.batch_size - n_real)]
+                    )
+                imgs, bs, ls, vs = [], [], [], []
+                ex_rng = np.random.default_rng(
+                    (self.seed, step, self.host_id)
+                )
+                # multi-scale: one canvas bucket per batch (all hosts pick
+                # the same bucket for a given step via the shared seed)
+                bucket_rng = np.random.default_rng((self.seed, step, 7))
+                canvas = self.canvas_buckets[
+                    int(bucket_rng.integers(len(self.canvas_buckets)))
+                ]
+                # per-batch shared jitter: one content-scale draw for the
+                # whole batch (all hosts agree via the shared seed)
+                jitter = self.jitter
+                if self.jitter is not None and self.jitter_per_batch:
+                    side = float(bucket_rng.uniform(*self.jitter))
+                    jitter = (side, side)
+                # per-example RNG streams keep parallel builds
+                # deterministic regardless of completion order
+                rngs = [
+                    np.random.default_rng((self.seed, step, self.host_id, j))
+                    for j in range(len(chunk))
+                ]
+                del ex_rng
+
+                def build(args):
+                    j, i = args
+                    return self._make_example(
+                        self.ds[int(i)], rngs[j], canvas=canvas,
+                        jitter=jitter,
+                    )
+
+                if pool is not None:
+                    results = list(pool.map(build, enumerate(chunk)))
+                else:
+                    results = [build(a) for a in enumerate(chunk)]
+                for img, b, l, v in results:
+                    imgs.append(img)
+                    bs.append(b)
+                    ls.append(l)
+                    vs.append(v)
+                batch = {
+                    "images": np.stack(imgs),
+                    "boxes": np.stack(bs),
+                    "labels": np.stack(ls),
+                    "valid": np.stack(vs),
+                }
+                if not self.drop_remainder:
+                    ev = np.zeros((self.batch_size,), bool)
+                    ev[:n_real] = True
+                    batch["example_valid"] = ev
+                yield batch
+                step += 1
+                if self.steps is not None and step >= self.steps:
+                    return
+            epoch += 1
+            if self.steps is None:
+                return  # single pass when no step budget is given
+
+    def __iter__(self):
+        if self.prefetch <= 0:
+            yield from self._batches()
+            return
+        q: queue.Queue = queue.Queue(maxsize=self.prefetch)
+        sentinel = object()
+
+        def worker():
+            try:
+                for b in self._batches():
+                    q.put(b)
+            finally:
+                q.put(sentinel)
+
+        t = threading.Thread(target=worker, daemon=True)
+        t.start()
+        while True:
+            item = q.get()
+            if item is sentinel:
+                break
+            yield item

@@ -33,8 +33,9 @@ N_LEVELS = 5
 
 class FCOS(nn.Module):
     """``generator`` seeds the initial weights (default: a fresh generator
-    seeded with 0, so two constructions agree). ``freeze_bn`` only matters
-    under ``train=True``, which waits for the training path."""
+    seeded with 0, so two constructions agree). ``freeze_bn`` keeps the
+    backbone's BatchNorm on its running statistics under ``train=True``
+    (they then neither enter the batch's statistics nor move)."""
 
     def __init__(self, num_classes: int, variant: str = "fcos",
                  backbone: str = "resnet50", features: int = 256,

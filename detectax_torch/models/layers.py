@@ -24,13 +24,17 @@ FOCAL_BIAS = math.log(0.01 / 0.99)
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm over the channel dim of an NCHW tensor, with the
-    Flax module's parameters (`weight`/`bias` = scale/bias, `running_mean`,
+    """BatchNorm over the channel dim of an NCHW tensor, with the Flax
+    module's parameters (`weight`/`bias` = scale/bias, `running_mean`,
     `running_var`).
 
-    ``train=True`` (batch statistics and the running-average update) is
-    part of the training path, which is not ported yet: the argument is
-    kept and raises.
+    ``train=True`` normalizes with the batch's statistics — mean and the
+    *biased* variance ``max(E[x²] − E[x]², 0)``, reduced in float32 — and
+    moves the running averages to ``m·old + (1−m)·new`` with that same
+    biased variance (``m = momentum``, 0.9 as in Flax). PyTorch's own
+    ``F.batch_norm(training=True)`` stores the unbiased variance and means
+    by momentum the weight of the new value, so it is not used here. The
+    buffers are updated in place, outside autograd.
     """
 
     def __init__(self, features: int, epsilon: float = 1e-5,
@@ -45,10 +49,18 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if train:
-            raise NotImplementedError(
-                "BatchNorm training statistics are not ported yet; the "
-                "port runs inference only (train=False)"
-            )
+            xr = x.to(torch.float32)
+            mean = xr.mean(dim=(0, 2, 3))
+            mean2 = torch.square(xr).mean(dim=(0, 2, 3))
+            var = torch.clamp_min(mean2 - torch.square(mean), 0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
+                self.running_var.mul_(m).add_(var, alpha=1.0 - m)
+            shape = (1, -1, 1, 1)
+            return ((x - mean.view(shape))
+                    * torch.rsqrt(var.view(shape) + self.epsilon)
+                    * self.weight.view(shape) + self.bias.view(shape))
         return F.batch_norm(
             x, self.running_mean, self.running_var, self.weight, self.bias,
             False, 0.0, self.epsilon,
@@ -174,13 +186,16 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
     """Seeded initial weights, the Flax modules' scheme: conv kernels
     LeCun-normal (variance 1/fan_in), conv biases zero — or the focal prior
     where the conv is marked ``focal_bias`` — BatchNorm scale one, bias
-    zero, running mean zero, running variance one."""
+    zero, running mean zero, running variance one. The numbers are drawn on
+    the generator's device and copied to the module's, so a seed gives the
+    same weights wherever the module lies."""
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, nn.Conv2d):
                 fan_in = m.weight[0].numel()
-                m.weight.normal_(0.0, math.sqrt(1.0 / fan_in),
-                                 generator=generator)
+                m.weight.copy_(torch.empty(
+                    m.weight.shape, device=generator.device,
+                ).normal_(0.0, math.sqrt(1.0 / fan_in), generator=generator))
                 if m.bias is not None:
                     m.bias.fill_(
                         FOCAL_BIAS if getattr(m, "focal_bias", False) else 0.0

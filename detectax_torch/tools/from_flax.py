@@ -19,6 +19,13 @@ Any leaf it does not know how to place is an error, and so is — when the
 target ``model`` is given — any parameter or buffer of the model that the
 trees did not fill, or filled with another shape.
 
+A whole training state crosses over as well: `load_train_state` fills a
+`detectax_torch.train.loop.TrainState` from the JAX package's
+(``params``, ``batch_stats``, optax ``opt_state``, ``step``,
+``ema_params``) turned into numpy, and `opt_to_flax` / `ema_to_flax` give
+the optimizer's moments and the EMA back as Flax-shaped trees, so two
+runs can be compared leaf by leaf.
+
 The port's own weights file is numpy-only: an ``.npz`` keyed by the Flax
 path (``params/ResNet_0/stem/Conv_0/kernel``), written by `save_npz` and
 read by `load_npz`. A file written from the JAX package (its trees turned
@@ -118,14 +125,18 @@ def load_flax(model: torch.nn.Module, params: Mapping,
     return model
 
 
-def to_flax(model: torch.nn.Module) -> tuple[dict, dict]:
+def to_flax(model: torch.nn.Module, tensors: Mapping | None = None
+            ) -> tuple[dict, dict]:
     """Inverse of `from_flax`: the model's ``state_dict`` as the two Flax
-    trees (nested dicts of numpy arrays)."""
+    trees (nested dicts of numpy arrays). ``tensors``, when given, takes
+    the ``state_dict``'s place: any mapping from its names to tensors of
+    the same shapes (optimizer moments, EMA parameters)."""
     backbone_name = getattr(getattr(model, "backbone", None),
                             "flax_name", None)
     params: dict = {}
     batch_stats: dict = {}
-    for key, value in model.state_dict().items():
+    items = model.state_dict() if tensors is None else tensors
+    for key, value in items.items():
         *mods, leaf = key.split(".")
         if mods and mods[0] == "backbone" and backbone_name:
             mods[0] = backbone_name
@@ -144,8 +155,105 @@ def to_flax(model: torch.nn.Module) -> tuple[dict, dict]:
             raise KeyError(f"state_dict entry {key} has no Flax counterpart")
         for m in mods:
             tree = tree.setdefault(m, {})
-        tree[name] = np.ascontiguousarray(arr)
+        # a copy: the trees must not move when the model trains on
+        tree[name] = np.array(arr, order="C")
     return params, batch_stats
+
+
+def _optax_fields(opt_state) -> dict:
+    """The named fields (``trace``, ``mu``, ``nu``, ``count``) of an optax
+    state, found by walking its nested tuples: every optax state is a
+    (named) tuple, so this needs no import of optax. A plain dict with
+    those keys is taken as it is."""
+    if isinstance(opt_state, Mapping):
+        return dict(opt_state)
+    found: dict = {}
+
+    def walk(node):
+        for name in getattr(node, "_fields", ()):
+            value = getattr(node, name)
+            if name in ("trace", "mu", "nu", "count"):
+                found.setdefault(name, value)
+            else:
+                walk(value)
+        if isinstance(node, (tuple, list)) and not hasattr(node, "_fields"):
+            for child in node:
+                walk(child)
+
+    walk(opt_state)
+    return found
+
+
+def load_train_state(state, params: Mapping,
+                     batch_stats: Mapping | None = None, *,
+                     opt_state=None, step: int = 0,
+                     ema_params: Mapping | None = None):
+    """Fill a `TrainState` from the JAX package's training state.
+
+    ``opt_state`` is the optax state with numpy leaves (or a dict of its
+    fields): SGD's momentum ``trace`` becomes the torch optimizer's
+    ``momentum_buffer``; Adam's ``mu`` / ``nu`` / ``count`` become
+    ``exp_avg`` / ``exp_avg_sq`` / ``step``. ``ema_params`` needs a state
+    created with ``ema=True``."""
+    model = state.model
+    load_flax(model, params, batch_stats)
+    state.step = int(step)
+    named = dict(model.named_parameters())
+
+    def as_param_tensors(tree):
+        sd = from_flax(tree)
+        if set(sd) != set(named):
+            odd = sorted(set(sd) ^ set(named))
+            raise KeyError(f"tree does not match the model's parameters: "
+                           f"{odd[:8]} ({len(odd)} in all)")
+        return {k: v.to(named[k].device) for k, v in sd.items()}
+
+    fields = _optax_fields(opt_state) if opt_state is not None else {}
+    state.opt.state.clear()
+    if "trace" in fields:
+        for k, v in as_param_tensors(fields["trace"]).items():
+            state.opt.state[named[k]]["momentum_buffer"] = v
+    elif "mu" in fields:
+        mu = as_param_tensors(fields["mu"])
+        nu = as_param_tensors(fields["nu"])
+        count = float(np.asarray(fields["count"]))
+        for k, p in named.items():
+            state.opt.state[p].update(
+                step=torch.tensor(count), exp_avg=mu[k], exp_avg_sq=nu[k])
+    elif opt_state is not None:
+        raise KeyError("opt_state holds neither a momentum trace nor Adam "
+                       f"moments (found {sorted(fields)})")
+    if ema_params is not None:
+        if state.ema is None:
+            raise ValueError("the state was created without EMA")
+        state.ema = as_param_tensors(ema_params)
+    return state
+
+
+def opt_to_flax(state) -> dict:
+    """The torch optimizer's moments as Flax-shaped trees:
+    ``{"trace": tree}`` for SGD-momentum, ``{"mu", "nu", "count"}`` for
+    Adam / AdamW."""
+    names = {"momentum_buffer": "trace", "exp_avg": "mu", "exp_avg_sq": "nu"}
+    per_field: dict = {}
+    count = None
+    for k, p in state.model.named_parameters():
+        for name, value in state.opt.state.get(p, {}).items():
+            if name == "step":
+                count = int(value)
+            elif name in names and value is not None:
+                per_field.setdefault(names[name], {})[k] = value
+    out = {f: to_flax(state.model, t)[0] for f, t in per_field.items()}
+    if count is not None:
+        out["count"] = count
+    return out
+
+
+def ema_to_flax(state) -> dict:
+    """The EMA parameters as a Flax ``params`` tree."""
+    if state.ema is None:
+        raise ValueError("the state holds no EMA parameters")
+    return to_flax(state.model, state.ema)[0]
 
 
 def save_npz(path: str, params: Mapping, batch_stats: Mapping | None = None):

@@ -23,7 +23,9 @@ from detectax_torch.infer.export import fcos_decode_fn, make_serving_fn
 from detectax_torch.infer.serving import Predictor
 from detectax_torch.models import FCOS
 import detectax_torch.cli.infer_fcos
+import detectax_torch.cli.train_fcos
 import detectax_torch.infer.visualize
+import detectax_torch.kernels.focal
 import detectax_torch.tools.from_flax
 
 model = FCOS(num_classes=3, backbone="tiny")
@@ -33,22 +35,61 @@ pred = Predictor.for_model(fn, model, canvas=64, buckets=(2,), device="cpu")
 out = pred.predict(np.zeros((3, 64, 64, 3), np.float32))
 assert out["boxes"].shape == (3, 8, 4), out["boxes"].shape
 assert (out["num_valid"] > 0).all()
+summary = detectax_torch.cli.train_fcos.main([
+    "--device", "cpu", "--backbone", "tiny", "--canvas", "64",
+    "--batch_size", "2", "--synthetic_n", "4", "--max_steps", "1",
+    "--display_step", "1", "--ckpt_dir", sys.argv[1] + "/ckpt",
+    "--out_dir", sys.argv[1] + "/out"])
+assert summary["final_step"] == 1
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in %r)
 assert not bad, bad
-print("served", int(out["num_valid"].sum()))
+assert "triton" not in sys.modules
+import detectax_torch.kernels._common as kc
+assert kc._lib is None and kc.build_seconds() is None  # nothing was built
+print("served", int(out["num_valid"].sum()), "trained", summary["final_step"])
 """ % (FORBIDDEN,)
 
 
-def test_port_serves_without_importing_jax_or_detectax():
+def test_port_serves_without_importing_jax_or_detectax(tmp_path):
+    """One request served and one step trained in a fresh interpreter:
+    no forbidden module is imported, `triton` is not imported and no
+    kernel is built along the way."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
     res = subprocess.run(
-        [sys.executable, "-c", SERVE_ONE_REQUEST], cwd=REPO, env=env,
-        capture_output=True, text=True, timeout=300,
+        [sys.executable, "-c", SERVE_ONE_REQUEST, str(tmp_path)], cwd=REPO,
+        env=env, capture_output=True, text=True, timeout=300,
     )
     assert res.returncode == 0, res.stdout + res.stderr
-    assert "served" in res.stdout
+    assert "served" in res.stdout and "trained 1" in res.stdout
+
+
+def test_every_port_module_imports_without_a_build():
+    """Importing any module of the port builds nothing and imports neither
+    `triton` nor a forbidden package (the kernels are built at first use
+    on a CUDA tensor)."""
+    mods = sorted(
+        os.path.relpath(p, REPO)[:-3].replace(os.sep, ".")
+        .removesuffix(".__init__")
+        for p in _port_sources() if "detectax_torch" in p)
+    assert "detectax_torch.train.loop" in mods
+    assert "detectax_torch.kernels.focal" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN + ('triton',)!r})\n"
+        "assert not bad, bad\n"
+        "import detectax_torch.kernels._common as kc\n"
+        "assert kc._lib is None and kc.build_seconds() is None\n"
+        "print('imported', len(sys.modules))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "imported" in res.stdout
 
 
 def _imported_roots(path):
@@ -71,7 +112,7 @@ def _port_sources():
 
 def test_static_scan_finds_no_forbidden_import():
     files = _port_sources()
-    assert len(files) > 15, files
+    assert len(files) > 30, files
     hits = [
         f"{os.path.relpath(path, REPO)}:{line} imports {root}"
         for path in files

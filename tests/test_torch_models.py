@@ -154,9 +154,20 @@ def test_focal_bias_and_seeded_init():
 
 
 def test_batchnorm_training_branch_is_deferred():
+    """The training branch arrived with the training path (it raised
+    before): batch statistics normalize, the running averages move by
+    Flax's momentum 0.9 with the biased variance, and ``train=False`` goes
+    on using the running averages. `tests/test_torch_train.py` holds it
+    against the Flax module."""
     bn = TL.BatchNorm(4)
-    with pytest.raises(NotImplementedError, match="training"):
-        bn(torch.zeros(1, 4, 2, 2), train=True)
+    x = torch.arange(16, dtype=torch.float32).reshape(1, 4, 2, 2)
+    y = bn(x, train=True)
+    assert torch.allclose(y.mean(dim=(0, 2, 3)), torch.zeros(4), atol=1e-6)
+    mean = x.mean(dim=(0, 2, 3))
+    var = x.var(dim=(0, 2, 3), unbiased=False)
+    assert torch.allclose(bn.running_mean, 0.1 * mean)
+    assert torch.allclose(bn.running_var, 0.9 + 0.1 * var)
+    assert not torch.allclose(bn(x, train=False), y)
 
 
 def test_convbn_s2d_stem_is_the_plain_conv(rng):
