@@ -14,23 +14,43 @@ order:
    duplicates, degenerate boxes and padding; the focal-loss kernel
    (forward sum rtol 2e-4, dlogits atol 1e-5, two runs bitwise equal) at
    the five level shapes, with a weight mask, with logits of +-100, and
-   on a strided view; times kernels and plain versions with CUDA events;
+   on a strided view; the peak-decode kernel in both modes
+   (`peak_mask_scores` to an exact match, NaN pattern included;
+   `peak_scores` to 1e-6, a differing keep/zero decision allowed only
+   within 2 ulp of the neighbourhood maximum) on plateaus, all-zero
+   planes, values below the -1 border fill, NaN and +-inf, 1 x N maps, a
+   strided view and the folded [H, W, P] layout; times kernels and plain
+   versions with CUDA events;
 4. drives the serving path at full width: FCOS, ResNet-50 + FPN, 20
    classes, 384 px, fp32, seeded weights, through `Predictor` with buckets
    (1, 8) — once with the default NMS (fused dense kernel) and once with
    combined-NMS candidates (top-k + sweep kernel) — and checks launch
    counts, shapes, finiteness and equality with the same path run on the
    kernels' plain versions;
-5. drives the training path at the same width, batch 16: 5 steps through
+5. drives the training path at the same width, batch 16: 3 steps through
    `make_train_step` with `fcos_assign`, `fcos_loss`, SGD-momentum and
-   clip 1.0 on the kernel path, the same 5 steps from the same initial
+   clip 1.0 on the kernel path, the same 3 steps from the same initial
    state on the plain versions, and one microbatched step; checks launch
    counts, finiteness, agreement of the two paths, and that BatchNorm
    statistics moved;
 6. trains 4 steps through the command-line entry point
    `detectax_torch.cli.train_fcos` on the synthetic dataset, restores the
    checkpoint it wrote and serves one 8-image request from it;
-7. prints one JSON line ``{"kernels": [...]}`` and, last, the ``ok`` line.
+7. drives the CenterNet paths at full width: serves `CenterNetFPNSingle`
+   (ResNet-50, 20 classes, 384 px) through `Predictor` — peak-decode
+   kernel and fused dense NMS kernel, one launch each a chunk — and one
+   8-image chunk of `CenterNetS8` (5 slots, 11,520 candidates an image),
+   both held against the same paths on the plain versions; trains
+   `CenterNetFPNSingle` at batch 16 for 3 steps on the kernel path and 3
+   on the plain path (`centernet_heatmap_assign`, `fcos_loss`, Adam);
+   trains 3 steps through `detectax_torch.cli.train_centernet_heatmap`
+   and serves one request from its checkpoint; trains `CenterNetS8` at
+   its reference 512 px, batch 16, 5 slots, for 2 steps on the kernel
+   path and 2 on the plain path (`centernet_scale_slot_assign`,
+   `centernet_s8_loss`, SGD); trains 2 steps through
+   `detectax_torch.cli.train_centernet_crowdhuman` and serves one 8-image
+   request at 512 px (20,480 candidates an image) from its checkpoint;
+8. prints one JSON line ``{"kernels": [...]}`` and, last, the ``ok`` line.
 
 It imports `detectax_torch` only — nothing of JAX or of `detectax`.
 """
@@ -48,21 +68,31 @@ import numpy as np
 import torch
 
 from detectax_torch import runtime
-from detectax_torch.infer.export import fcos_decode_fn, make_serving_fn
+from detectax_torch.infer.export import (
+    centernet_decode_fn,
+    fcos_decode_fn,
+    make_serving_fn,
+)
 from detectax_torch.infer.serving import Predictor
 from detectax_torch.kernels import _common as kcommon
 from detectax_torch.kernels import focal as KF
 from detectax_torch.kernels import nms as K
+from detectax_torch.kernels import peak as KP
 from detectax_torch.kernels.probe import barrier_probe
-from detectax_torch.models import FCOS
-from detectax_torch.ops.assign import fcos_assign
+from detectax_torch.models import FCOS, CenterNetFPNSingle, CenterNetS8
+from detectax_torch.ops.assign import (
+    centernet_heatmap_assign,
+    centernet_scale_slot_assign,
+    fcos_assign,
+)
 from detectax_torch.train.driver import restore_for_inference
 from detectax_torch.train.loop import create_train_state, make_train_step
-from detectax_torch.train.losses import fcos_loss
+from detectax_torch.train.losses import centernet_s8_loss, fcos_loss
 from detectax_torch.train.schedules import (
     exponential_with_floor,
     global_norm,
     make_optimizer,
+    piecewise_constant,
 )
 
 SEED = 0
@@ -93,6 +123,12 @@ FOCAL_BATCH = 16
 # of one element of dlogits
 FOCAL_SUM_RTOL, FOCAL_GRAD_ATOL = 2e-4, 1e-5
 
+# ... and per element of the peak decode: 8 comparisons; with the sigmoid,
+# 9 scores of 4 operations each (negate, exp, add, divide) besides
+PEAK_FLOPS, PEAK_SIGMOID_FLOPS = 8, 8 + 9 * 4
+PEAK_ATOL = 1e-6      # peak_scores values: an ulp of expf
+PEAK_TIE_ULPS = 2     # a keep/zero decision may differ only this close
+
 BOUND_NOTE = (
     "bound_ms is the larger of bytes/3.35e12 and operations/67e12 and "
     "bound_by names which; the chain of dependent rounds is not part of "
@@ -103,7 +139,12 @@ BOUND_NOTE = (
     "are device times of the forward queued behind a blocker, the "
     "call_ms keys what a caller on this host sees; an element is charged "
     "24 operations forward and 30 backward, each transcendental call and "
-    "division counted as one")
+    "division counted as one. peak: ms, plain_ms and library_ms are device "
+    "times queued behind a blocker, call_ms what a caller on this host "
+    "sees; library_ms is torch.where(p >= max_pool2d(p, 3, 1, 1), p, 0) "
+    "on an NCHW copy made outside the timing - two calls, and it pads "
+    "with -inf, so it is another function at the border. launches is the "
+    "sum over the counted runs listed in launches_by_path")
 
 BACKBONE, CANVAS, NUM_CLASSES, BUCKETS = "resnet50", 384, 20, (1, 8)
 CANDIDATES = 3069  # 48^2 + 24^2 + 12^2 + 6^2 + 3^2 cells at 384 px
@@ -322,13 +363,16 @@ def library_focal(labels, logits, alpha=0.25, gamma=2.0):
             * (1 - p_t) ** gamma * ce).sum()
 
 
-def check_focal(rng, hw, *, case="dense"):
+def check_focal(rng, hw, *, case="dense", classes=NUM_CLASSES, slots=None,
+                lead=5):
     """Forward sum and dlogits of the focal kernel against its plain
-    version at one level's shape ``[16, hw, hw, 20]``. `case`: "dense"
-    (contiguous), "weights" (with a 0/1 mask), "extreme" (logits in
-    {-100, -40, 0, 40, 100}), "strided" (the class channels of a
-    25-channel map, read in place)."""
-    shape = (FOCAL_BATCH, hw, hw, NUM_CLASSES)
+    version on ``[16, hw, hw, classes]`` (``[16, hw, hw, slots, classes]``
+    with `slots`, the scale-slot map). `case`: "dense" (contiguous),
+    "weights" (with a 0/1 mask), "extreme" (logits in {-100, -40, 0, 40,
+    100}), "strided" (the class channels of a map with `lead` more
+    channels before them, read in place)."""
+    shape = ((FOCAL_BATCH, hw, hw) + ((slots,) if slots else ())
+             + (classes,))
     labels = (rng.uniform(size=shape) < 0.01).astype(np.float32)
     if case == "extreme":
         logits = rng.choice(
@@ -338,16 +382,16 @@ def check_focal(rng, hw, *, case="dense"):
     z, x = cuda(labels), cuda(logits)
     w = None
     if case == "weights":
-        w = cuda((rng.uniform(size=shape[:3] + (1,)) < 0.7)
+        w = cuda((rng.uniform(size=shape[:-1] + (1,)) < 0.7)
                  .astype(np.float32))
     if case == "strided":
         def widen(t):
-            wide = torch.zeros(shape[:3] + (5 + NUM_CLASSES,), device=DEV)
-            wide[..., 5:] = t
-            return wide[..., 5:]
+            wide = torch.zeros(shape[:-1] + (lead + classes,), device=DEV)
+            wide[..., lead:] = t
+            return wide[..., lead:]
         z, x = widen(z), widen(x)
         check(not x.is_contiguous(), "strided case is contiguous")
-    name = f"focal {case} hw={hw}"
+    name = f"focal {case} {shape}"
 
     def run(fn):
         xg = x.detach().requires_grad_(True)
@@ -412,8 +456,10 @@ def check_focal(rng, hw, *, case="dense"):
     bwd_bound_ms, _ = bound(n * (per_el + 4) + 4,
                             n * (FOCAL_BWD_FLOPS + extra))
     return {
-        "shape": {"B": FOCAL_BATCH, "h": hw, "w": hw, "classes": NUM_CLASSES,
-                  "case": case},
+        "shape": {"B": FOCAL_BATCH, "h": hw, "w": hw, "slots": slots,
+                  "classes": classes, "case": case,
+                  "row_stride": (lead + classes if case == "strided"
+                                 else classes)},
         "max_abs_err": max(grad_err, closed_err), "sum_rel_err": sum_rel,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": library_ms,
@@ -430,6 +476,136 @@ def check_focal_all(rng):
     rows = [check_focal(rng, hw) for hw in FOCAL_LEVELS]
     rows += [check_focal(rng, FOCAL_LEVELS[0], case=c)
              for c in ("weights", "extreme", "strided")]
+    # the class terms of the two CenterNet losses, as their training paths
+    # hand them over: channels 5: of the heatmap model's [16, 48, 48, 26]
+    # map, and channels 4: of the scale-slot model's [16, 64, 64, 5, 24]
+    rows += [check_focal(rng, CANVAS // 8, case="strided",
+                         classes=NUM_CLASSES + 1, lead=5),
+             check_focal(rng, S8_CANVAS // 8, case="strided",
+                         classes=NUM_CLASSES, slots=len(S8_SCALES), lead=4)]
+    return rows
+
+
+def library_peak(p_nchw):
+    """The nearest PyTorch calls: max_pool2d and a select. A yardstick for
+    `library_ms` only; nothing in the port calls it, and it pads with -inf
+    where the kernel's contract is -1."""
+    import torch.nn.functional as F
+    return torch.where(p_nchw >= F.max_pool2d(p_nchw, 3, 1, 1), p_nchw,
+                       torch.zeros((), device=p_nchw.device))
+
+
+def check_peak(rng, shape, *, sigmoid=False, case="uniform", timed=False):
+    """One mode of the peak kernel against its plain version on one map
+    ``[B, h, w, C]`` or ``[H, W, P]``. `case`: "uniform", "plateaus" (three
+    distinct values; with the sigmoid, logits of 18-30 that all give 1.0),
+    "zeros", "below_border" (values under the -1 fill), "nonfinite" (NaN
+    and +-inf sprinkled in), "strided" (the channels 1: of a wider map)."""
+    if case == "plateaus":
+        x = (rng.integers(0, 3, size=shape) / 2).astype(np.float32)
+        if sigmoid:
+            x = (18.0 + 6.0 * x).astype(np.float32)
+            x.reshape(-1)[::7] = -3.0
+    elif case == "zeros":
+        x = np.zeros(shape, np.float32)
+    elif case == "below_border":
+        x = rng.uniform(-3, 0.5, size=shape).astype(np.float32)
+    else:
+        x = (rng.normal(scale=4.0, size=shape) if sigmoid
+             else rng.uniform(0, 1, size=shape)).astype(np.float32)
+    if case == "nonfinite":
+        flat = x.reshape(-1)
+        flat[::17], flat[5::31], flat[7::29] = np.nan, np.inf, -np.inf
+    t = cuda(x)
+    if case == "strided":
+        wide = torch.zeros(shape[:-1] + (shape[-1] + 1,), device=DEV)
+        wide[..., 1:] = t
+        t = wide[..., 1:]
+        check(not t.is_contiguous(), "strided case is contiguous")
+    fn, plain = ((KP.peak_scores, KP.peak_scores_plain) if sigmoid
+                 else (KP.peak_mask_scores, KP.peak_mask_scores_plain))
+    name = f"{fn.__name__} {case} {shape}"
+
+    got = fn(t)
+    torch.cuda.synchronize()
+    want = plain(t)
+    check(got.shape == want.shape == t.shape and got.dtype == torch.float32
+          and got.is_contiguous(), f"{name}: wrong output")
+    check(torch.equal(got.isnan(), want.isnan()),
+          f"{name}: NaN pattern differs from the plain version")
+    g, w = torch.nan_to_num(got, 0.0, 9.0, -9.0), \
+        torch.nan_to_num(want, 0.0, 9.0, -9.0)
+    flipped = (g == 0) != (w == 0)
+    n_flipped = int(flipped.sum())
+    if sigmoid:
+        p = 1.0 / (1.0 + torch.exp(-t))
+        gap = (p - KP.neighbour_max(p)).abs()
+        ulp = torch.nextafter(p, torch.full_like(p, 2.0)) - p
+        check(bool((gap[flipped] <= PEAK_TIE_ULPS * ulp[flipped]).all()),
+              f"{name}: a keep/zero decision differs at a cell further than "
+              f"{PEAK_TIE_ULPS} ulp from its neighbourhood maximum")
+        err = float((g - w)[~flipped].abs().max()) if g.numel() else 0.0
+        check(err <= PEAK_ATOL, f"{name}: values differ by {err} from the "
+                                f"plain version (tolerance {PEAK_ATOL})")
+    else:
+        err = float((g - w).abs().max()) if g.numel() else 0.0
+        check(err == 0.0 and n_flipped == 0,
+              f"{name}: max abs difference {err}, {n_flipped} keep/zero "
+              f"decisions differ (exact match expected)")
+    kept = float((w != 0).float().mean())
+    if case == "zeros":   # with the sigmoid: a plateau of 0.5, kept whole
+        check(bool((got == (0.5 if sigmoid else 0.0)).all()),
+              f"{name}: an all-zero plane is not flat after the kernel")
+    elif case in ("uniform", "strided") and min(shape[-3:-1]) >= 3:
+        check(0.0 < kept < 0.5, f"{name}: degenerate test input ({kept})")
+    row = {"shape": {"dims": list(shape), "sigmoid": sigmoid, "case": case},
+           "max_abs_err": err, "decisions_differing": n_flipped,
+           "kept_share": kept}
+    if not timed:
+        return row
+
+    n = int(np.prod(shape))
+    nchw = t.permute(0, 3, 1, 2).contiguous()
+    if sigmoid:
+        nchw = torch.sigmoid(nchw)
+    with torch.no_grad():
+        ms = queued_ms(lambda: fn(t), reps=50)
+        call_ms = time_ms(lambda: fn(t), warmup=2, reps=50)
+        plain_ms = queued_ms(lambda: plain(t), reps=20)
+        plain_call_ms = time_ms(lambda: plain(t), warmup=2, reps=20)
+        library_ms = queued_ms(lambda: library_peak(nchw), reps=20)
+    bound_ms, bound_by = bound(
+        n * 8, n * (PEAK_SIGMOID_FLOPS if sigmoid else PEAK_FLOPS))
+    row.update({"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": library_ms,
+                "call_ms": call_ms, "plain_call_ms": plain_call_ms})
+    return row
+
+
+PEAK_MAIN = (8, 48, 48, 20)   # the heatmap decode's scores at 384 px, batch 8
+PEAK_EDGE_SHAPES = ((3, 3, 2), (1, 7, 3), (7, 1, 3), (48, 48, 160),
+                    (2, 64, 64, 7), (80, 80, 33), (1, 1, 1))
+PEAK_CASES = ("uniform", "plateaus", "zeros", "below_border", "nonfinite")
+
+
+def check_peak_all(rng):
+    """First row: `peak_mask_scores` at the main path's shape, timed (what
+    the `kernels` line reports); then `peak_scores` there, the decode at
+    512 px, the batch-1 bucket's map, strided views, and every edge shape
+    and case in both modes."""
+    rows = [check_peak(rng, PEAK_MAIN, timed=True),
+            check_peak(rng, PEAK_MAIN, sigmoid=True, timed=True),
+            check_peak(rng, (8, 64, 64, 20), timed=True),
+            check_peak(rng, (1,) + PEAK_MAIN[1:]),   # the batch-1 bucket
+            check_peak(rng, PEAK_MAIN, case="strided"),
+            check_peak(rng, PEAK_MAIN, sigmoid=True, case="strided")]
+    for shape in (PEAK_MAIN,) + PEAK_EDGE_SHAPES:
+        for case in PEAK_CASES:
+            for sigmoid in (False, True):
+                if shape == PEAK_MAIN and case == "uniform":
+                    continue
+                rows.append(check_peak(rng, shape, sigmoid=sigmoid,
+                                       case=case))
     return rows
 
 
@@ -605,13 +781,14 @@ def main_path():
 # phase 5: the training path
 # --------------------------------------------------------------------------
 
-TRAIN_BATCH, TRAIN_BOXES, TRAIN_STEPS = 16, 16, 5
+TRAIN_BATCH, TRAIN_BOXES, TRAIN_STEPS = 16, 16, 3
 PATHS_RTOL = 1e-4  # kernel path against plain path, and split against unsplit
 
 
-def train_batch(seed: int) -> dict:
-    """A seeded numpy batch: normal images, 16 boxes an image around the
-    centre, all valid."""
+def train_batch(seed: int, canvas: int | None = None) -> dict:
+    """A seeded numpy batch: normal images (`CANVAS` pixels a side unless
+    `canvas` is given), 16 boxes an image around the centre, all valid."""
+    canvas = canvas or CANVAS
     rng = np.random.default_rng(seed)
     shape = (TRAIN_BATCH, TRAIN_BOXES)
     boxes = np.zeros(shape + (4,), np.float32)
@@ -620,7 +797,7 @@ def train_batch(seed: int) -> dict:
     boxes[:, :, 2] = rng.uniform(0.05, 0.5, shape)
     boxes[:, :, 3] = rng.uniform(0.05, 0.5, shape)
     return {
-        "images": rng.normal(size=(TRAIN_BATCH, CANVAS, CANVAS, 3))
+        "images": rng.normal(size=(TRAIN_BATCH, canvas, canvas, 3))
         .astype(np.float32),
         "boxes": boxes,
         "labels": rng.integers(0, NUM_CLASSES, shape).astype(np.int32),
@@ -859,6 +1036,376 @@ def cli_path():
 
 
 # --------------------------------------------------------------------------
+# phase 7: the CenterNet paths (ResNet backbone, stride 8)
+# --------------------------------------------------------------------------
+
+CN_CELLS = (CANVAS // 8) ** 2               # 2,304 candidates an image
+S8_SCALES = (32.0, 64.0, 128.0, 256.0, 512.0)
+S8_CANVAS = 512   # the scale-slot model's reference canvas
+
+
+def build_centernet(kind: str):
+    """Seeded full-width model with the class heads' bias raised as
+    `build_model` raises it."""
+    gen = torch.Generator().manual_seed(SEED)
+    if kind == "heatmap":
+        model = CenterNetFPNSingle(num_classes=NUM_CLASSES, backbone=BACKBONE,
+                                   generator=gen)
+        heads = [model.cls_head]
+    else:
+        model = CenterNetS8(num_classes=NUM_CLASSES,
+                            n_scales=len(S8_SCALES), backbone=BACKBONE,
+                            generator=gen)
+        heads = [getattr(model, f"cls_head_{s}")
+                 for s in range(1, len(S8_SCALES) + 1)]
+    with torch.no_grad():
+        for head in heads:
+            head.Conv_0.bias.fill_(CLS_HEAD_BIAS)
+    return model
+
+
+def centernet_predictor(model, *, kernels=None, buckets=BUCKETS,
+                        canvas=CANVAS, **serving) -> Predictor:
+    decode = centernet_decode_fn(model.family, box_scales=S8_SCALES,
+                                 kernels=kernels)
+    fn = make_serving_fn(model, decode, kernels=kernels, **serving)
+    return Predictor.for_model(fn, model, canvas=canvas, buckets=buckets,
+                               device=DEV)
+
+
+def centernet_breakdown(model, images8: np.ndarray) -> dict:
+    """Device milliseconds (CUDA events) of the stages of one heatmap
+    chunk at batch 8 and batch 1: forward, decode with the peak kernel
+    inside (and on its plain version), and the NMS stage."""
+    from detectax_torch.infer.predict import detections_from_dense
+
+    decode = centernet_decode_fn("centernet_heatmap")
+    decode_plain = centernet_decode_fn("centernet_heatmap", kernels="plain")
+    out = {}
+    with torch.no_grad():
+        for batch in (8, 1):
+            x = torch.from_numpy(images8[:batch]).to(DEV)
+            y = model(x)
+            boxes, probs = decode(y)
+            t = lambda fn: time_ms(fn, warmup=2, reps=10)
+            out[f"batch_{batch}"] = {
+                "forward": t(lambda: model(x)),
+                "decode": t(lambda: decode(y)),
+                "decode_plain_peak": t(lambda: decode_plain(y)),
+                "nms_stage_dense": t(
+                    lambda: detections_from_dense(boxes, probs)),
+            }
+    return out
+
+
+def centernet_serving_path():
+    rng = np.random.default_rng(SEED + 3)
+    requests = [rng.uniform(-1, 1, size=(n, CANVAS, CANVAS, 3))
+                .astype(np.float32) for n in REQUESTS]
+    model = build_centernet("heatmap")
+    pred = centernet_predictor(model)
+
+    with torch.no_grad():
+        y = model(torch.from_numpy(requests[0]).to(DEV))
+        _, probs = centernet_decode_fn("centernet_heatmap")(y)
+    passing = int((probs.amax(-1) >= 0.05).sum())
+    log(f"centernet heatmap path: M={probs.shape[1]} candidates per image, "
+        f"{int((probs > 0).sum())} peaks and {passing} cells of the first "
+        f"image pass score_thresh 0.05")
+    check(probs.shape[1] == CN_CELLS, f"expected {CN_CELLS} candidates")
+    check(passing >= 100, "too few peaks pass the threshold for the NMS "
+                          "stage to do real work")
+    pred.warmup()
+
+    # ---- the counted run: counts set to 0 just before, read just after
+    kcommon.reset_launch_counts()
+    results, seconds = serve(pred, requests)
+    counts = kcommon.launch_counts()
+    # ----
+
+    chunks = sum(len(pred._plan(n)) for n in REQUESTS)
+    for name in ("peak", "dense_nms"):
+        check(counts.get(name, 0) == chunks,
+              f"centernet serving launched {name} {counts.get(name, 0)} "
+              f"times, expected one per chunk = {chunks}")
+    check(set(counts) == {"peak", "dense_nms"},
+          f"centernet serving launched {counts}")
+    plain_out, _ = serve(centernet_predictor(model, kernels="plain"),
+                         requests)
+    check(kcommon.launch_counts() == counts,
+          "the plain centernet path launched a kernel")
+    for n, got, want in zip(REQUESTS, results, plain_out):
+        check_detections(f"centernet heatmap, request of {n}", got, n)
+        same_detections(f"centernet heatmap, request of {n}", got, want)
+
+    # one 8-image chunk of the scale-slot model: 5 x 2,304 candidates an
+    # image through the dense kernel
+    s8 = build_centernet("s8")
+    s8_pred = centernet_predictor(s8, buckets=(8,))
+    s8_pred.warmup()
+    kcommon.reset_launch_counts()
+    t0 = time.perf_counter()
+    s8_got = s8_pred.predict(requests[2])
+    s8_ms = (time.perf_counter() - t0) * 1e3
+    s8_counts = kcommon.launch_counts()
+    check(s8_counts == {"dense_nms": 1},
+          f"the CenterNetS8 chunk launched {s8_counts}, expected one "
+          f"dense_nms")
+    s8_want = centernet_predictor(s8, kernels="plain", buckets=(8,)) \
+        .predict(requests[2])
+    check_detections("CenterNetS8 chunk", s8_got, 8)
+    same_detections("CenterNetS8 chunk", s8_got, s8_want)
+    del s8, s8_pred
+
+    stages = centernet_breakdown(model, requests[2])
+    serving = {
+        "images_per_s": sum(REQUESTS) / sum(seconds),
+        "request_ms": {str(n): s * 1e3 for n, s in zip(REQUESTS, seconds)},
+        "s8_chunk_of_8_ms": s8_ms,
+        "s8_candidates_per_image": len(S8_SCALES) * CN_CELLS,
+    }
+    return counts, serving, stages
+
+
+CN_TRAIN_STEPS = 3
+
+
+def centernet_assign_fn(boxes, labels, valid):
+    # objectness slot at class index 0; real labels shift by +1
+    return [centernet_heatmap_assign(
+        boxes, labels + 1, valid, img_dim=(CANVAS, CANVAS),
+        num_classes=NUM_CLASSES + 1)[0]]
+
+
+def make_centernet_trainer(*, kernels=None):
+    model = CenterNetFPNSingle(
+        num_classes=NUM_CLASSES, backbone=BACKBONE,
+        generator=torch.Generator().manual_seed(SEED)).to(DEV)
+    opt = make_optimizer("adam", exponential_with_floor(1e-3), grad_clip=1.0)
+
+    def loss_fn(y_true, y_pred):
+        return fcos_loss(y_true, [y_pred], cen_type="l1", kernels=kernels)
+
+    step = make_train_step(model, centernet_assign_fn, loss_fn, opt)
+    return model, create_train_state(model, None, opt), step
+
+
+def kernel_and_plain_steps(name, make, assign, batches, *, warmup):
+    """Train `batches` on the kernel path (the counted run) and, from the
+    same seeded state, on the plain path; one focal launch forward and one
+    backward a step, step-1 losses equal to `PATHS_RTOL`. `make(kernels=)`
+    returns (model, state, step)."""
+    steps = len(batches)
+    if warmup:                                 # cuDNN picks plans
+        _, state, step = make()
+        run_steps(state, step, batches[:1])
+        del state, step
+    _, state, step = make()
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- the counted run: counts set to 0 just before, read just after
+    kcommon.reset_launch_counts()
+    t0 = time.perf_counter()
+    metrics, step_ms = run_steps(state, step, batches)
+    wall = time.perf_counter() - t0
+    counts = kcommon.launch_counts()
+    # ----
+    peak_mem = torch.cuda.max_memory_allocated()
+
+    check(state.step == steps, f"{name}: step count {state.step}")
+    for i, m in enumerate(metrics):
+        check(all(np.isfinite(v) for v in m.values()),
+              f"{name} step {i + 1}: non-finite metric {m}")
+    check(counts == {"focal_fwd": steps, "focal_bwd": steps},
+          f"{name} launched {counts}, expected one focal_fwd and one "
+          f"focal_bwd a step")
+    check(metrics[0]["num_pos"] > 0,
+          f"{name}: no positive cell in the first batch")
+
+    del state, step
+    _, pstate, pstep = make(kernels="plain")
+    plain_metrics, plain_ms = run_steps(pstate, pstep, batches)
+    check(kcommon.launch_counts() == counts,
+          f"the plain path of {name} launched a kernel")
+    agree = {}
+    for key in ("total", "cls", "grad_norm"):
+        a, b = metrics[0][key], plain_metrics[0][key]
+        agree[key] = abs(a - b) / max(abs(a), abs(b))
+        check(close(a, b, PATHS_RTOL),
+              f"{name} step 1 {key}: kernel path {a}, plain path {b} "
+              f"(tolerance rtol {PATHS_RTOL})")
+    b0 = batches[0]
+    assign_ms = time_ms(lambda: assign(
+        b0["boxes"], b0["labels"], b0["valid"]), warmup=1, reps=5)
+    return counts, {
+        "batch": TRAIN_BATCH, "steps": steps,
+        "step_ms": step_ms, "plain_path_step_ms": plain_ms,
+        "images_per_s": TRAIN_BATCH * steps / wall,
+        "peak_memory_bytes": peak_mem, "assign_ms": assign_ms,
+        "metrics_step_1": metrics[0], "metrics_last": metrics[-1],
+        "plain_metrics_step_1": plain_metrics[0],
+        "kernel_vs_plain_rel": agree,
+    }
+
+
+def centernet_train_path():
+    batches = [{k: cuda(v) for k, v in train_batch(SEED + 20 + i).items()}
+               for i in range(CN_TRAIN_STEPS)]
+    counts, out = kernel_and_plain_steps(
+        "centernet training", make_centernet_trainer, centernet_assign_fn,
+        batches, warmup=True)
+    steady = out["step_ms"][1:]
+    return counts, {"optimizer": "adam", **out,
+                    "step_ms_mean_after_first": sum(steady) / len(steady)}
+
+
+def centernet_cli_path():
+    from detectax_torch.cli import train_centernet_heatmap
+
+    steps = 3
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt_dir = os.path.join(tmp, "ckpt")
+        kcommon.reset_launch_counts()
+        summary = train_centernet_heatmap.main([
+            "--backbone", BACKBONE, "--canvas", str(CANVAS),
+            "--batch_size", "16", "--max_steps", str(steps),
+            "--display_step", "1", "--step_save", str(steps),
+            "--synthetic_n", "48",
+            "--ckpt_dir", ckpt_dir, "--out_dir", os.path.join(tmp, "out"),
+        ])
+        counts = kcommon.launch_counts()
+        check(summary["final_step"] == steps, f"CLI trained {summary}")
+        check(np.isfinite(summary["total"]) and np.isfinite(
+            summary["grad_norm"]), f"CLI metrics not finite: {summary}")
+        check(counts == {"focal_fwd": steps, "focal_bwd": steps},
+              f"CLI training launched {counts}, expected {steps} and "
+              f"{steps}")
+        nc = 3  # the synthetic dataset's classes
+        model = CenterNetFPNSingle(num_classes=nc, backbone=BACKBONE).to(DEV)
+        fresh = model.cls_head.Conv_0.weight.clone()
+        restore_for_inference(ckpt_dir, model)
+        check(not torch.equal(fresh, model.cls_head.Conv_0.weight),
+              "restore left the model's weights as they were")
+    # three steps from the focal prior leave every score near 0.01: serve
+    # with no score threshold so that the request has detections to check
+    pred = centernet_predictor(model, score_thresh=0.0)
+    rng = np.random.default_rng(SEED + 4)
+    images = rng.uniform(-1, 1, size=(8, CANVAS, CANVAS, 3)) \
+        .astype(np.float32)
+    kcommon.reset_launch_counts()
+    dets = pred.predict(images)
+    check(kcommon.launch_counts() == {"peak": 1, "dense_nms": 1},
+          f"request from the checkpoint launched {kcommon.launch_counts()}")
+    check(dets["boxes"].shape == (8, 100, 4)
+          and dets["num_valid"].shape == (8,),
+          "centernet request from the checkpoint: wrong output shapes")
+    check(np.isfinite(dets["boxes"]).all()
+          and np.isfinite(dets["scores"]).all(),
+          "centernet request from the checkpoint: non-finite output")
+    check((dets["num_valid"] > 0).all()
+          and (dets["classes"][dets["valid"]] < nc).all(),
+          "centernet request from the checkpoint: no or impossible "
+          "detections")
+    return {k: summary[k] for k in ("final_step", "images_per_sec", "total",
+                                    "grad_norm")}
+
+
+S8_TRAIN_STEPS = 2
+
+
+def s8_assign_fn(boxes, labels, valid):
+    return centernet_scale_slot_assign(
+        boxes, labels, valid, img_dim=(S8_CANVAS, S8_CANVAS),
+        num_classes=NUM_CLASSES, box_scales=S8_SCALES)[0]
+
+
+def make_s8_trainer(*, kernels=None):
+    model = CenterNetS8(
+        num_classes=NUM_CLASSES, n_scales=len(S8_SCALES), backbone=BACKBONE,
+        generator=torch.Generator().manual_seed(SEED)).to(DEV)
+    opt = make_optimizer(
+        "sgd", piecewise_constant(0.01, [20000, 25000], [0.1, 0.1]),
+        grad_clip=1.0)
+    step = make_train_step(
+        model, s8_assign_fn,
+        functools.partial(centernet_s8_loss, kernels=kernels), opt)
+    return model, create_train_state(model, None, opt), step
+
+
+def s8_train_path():
+    """`CenterNetS8` at its reference canvas of 512 px, batch 16, 5 slots:
+    `centernet_scale_slot_assign` -> `centernet_s8_loss` -> SGD with the
+    piecewise schedule. The focal kernel reads channels 4: of the
+    ``[16, 64, 64, 5, 24]`` maps in place. No warm-up: the first step's
+    time includes cuDNN's choice of plans."""
+    batches = [{k: cuda(v)
+                for k, v in train_batch(SEED + 30 + i, S8_CANVAS).items()}
+               for i in range(S8_TRAIN_STEPS)]
+    counts, out = kernel_and_plain_steps(
+        "scale-slot training", make_s8_trainer, s8_assign_fn, batches,
+        warmup=False)
+    return counts, {"optimizer": "sgd", "canvas": S8_CANVAS,
+                    "slots": len(S8_SCALES), **out}
+
+
+def s8_cli_path():
+    """`cli.train_centernet_crowdhuman` for a few steps on the synthetic
+    dataset (Gaussian class targets, which go through the assigner's
+    `scatter_reduce_` maximum), then one 8-image request at 512 px from
+    the checkpoint: 20,480 candidates an image through the dense kernel."""
+    from detectax_torch.cli import train_centernet_crowdhuman
+
+    steps = 2
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt_dir = os.path.join(tmp, "ckpt")
+        kcommon.reset_launch_counts()
+        summary = train_centernet_crowdhuman.main([
+            "--backbone", BACKBONE, "--canvas", str(S8_CANVAS),
+            "--batch_size", "16", "--max_steps", str(steps),
+            "--display_step", "1", "--step_save", str(steps),
+            "--synthetic_n", "32", "--gaussian_cls",
+            "--ckpt_dir", ckpt_dir, "--out_dir", os.path.join(tmp, "out"),
+        ])
+        counts = kcommon.launch_counts()
+        check(summary["final_step"] == steps, f"CLI trained {summary}")
+        check(np.isfinite(summary["total"]) and np.isfinite(
+            summary["grad_norm"]), f"CLI metrics not finite: {summary}")
+        check(counts == {"focal_fwd": steps, "focal_bwd": steps},
+              f"CLI training launched {counts}, expected {steps} and "
+              f"{steps}")
+        nc = 3  # the synthetic dataset's classes
+        model = CenterNetS8(num_classes=nc, n_scales=len(S8_SCALES),
+                            backbone=BACKBONE).to(DEV)
+        fresh = model.cls_head_1.Conv_0.weight.clone()
+        restore_for_inference(ckpt_dir, model)
+        check(not torch.equal(fresh, model.cls_head_1.Conv_0.weight),
+              "restore left the model's weights as they were")
+    pred = centernet_predictor(model, buckets=(8,), canvas=S8_CANVAS,
+                               score_thresh=0.0)
+    rng = np.random.default_rng(SEED + 5)
+    images = rng.uniform(0, 1, size=(8, S8_CANVAS, S8_CANVAS, 3)) \
+        .astype(np.float32)
+    kcommon.reset_launch_counts()
+    dets = pred.predict(images)
+    check(kcommon.launch_counts() == {"dense_nms": 1},
+          f"request from the checkpoint launched {kcommon.launch_counts()}")
+    want = centernet_predictor(model, kernels="plain", buckets=(8,),
+                               canvas=S8_CANVAS, score_thresh=0.0) \
+        .predict(images)
+    name = "scale-slot request from the checkpoint"
+    check(dets["boxes"].shape == (8, 100, 4)
+          and dets["num_valid"].shape == (8,), f"{name}: wrong output shapes")
+    check(np.isfinite(dets["boxes"]).all()
+          and np.isfinite(dets["scores"]).all(), f"{name}: non-finite output")
+    check((dets["num_valid"] > 0).all()
+          and (dets["classes"][dets["valid"]] < nc).all(),
+          f"{name}: no or impossible detections")
+    same_detections(name, dets, want)
+    return {k: summary[k] for k in ("final_step", "images_per_sec", "total",
+                                    "grad_norm")}
+
+
+# --------------------------------------------------------------------------
 
 def main() -> None:
     if not torch.cuda.is_available():
@@ -880,6 +1427,7 @@ def main() -> None:
 
     kcommon.load_library(verbose=True)
     K.load_kernels()
+    KP.load_kernels()
     built = kcommon.build_seconds()
     log("kernels found built and loaded" if built is None
         else f"kernels built and loaded in {built:.1f} s")
@@ -894,7 +1442,14 @@ def main() -> None:
         check_sweep(rng, 8, 1024, class_aware=False, with_valid=True),
         check_sweep(rng, 8, 2048, class_aware=True, with_valid=False),
     ]
-    dense = [check_dense(rng, 8, 3069, 100), check_dense(rng, 8, 8525, 200)]
+    # 3,069: FCOS at 384 px; 2,304 and 11,520: the two CenterNet decodes
+    # there (2,304 at both buckets); 20,480: the scale-slot decode at 512 px
+    dense = [check_dense(rng, 8, 3069, 100), check_dense(rng, 8, 8525, 200),
+             check_dense(rng, 8, CN_CELLS, 100),
+             check_dense(rng, 1, CN_CELLS, 100),
+             check_dense(rng, 8, len(S8_SCALES) * CN_CELLS, 100),
+             check_dense(rng, 8, len(S8_SCALES) * (S8_CANVAS // 8) ** 2,
+                         100)]
     for name, rows in (("nms_sweep", sweep), ("dense_nms", dense)):
         for r in rows:
             # floor of a one-block-per-image design: the rounds of its
@@ -904,6 +1459,12 @@ def main() -> None:
     focal = check_focal_all(rng)
     for r in focal:
         log(f"kernel focal {json.dumps(r)}")
+    peak = check_peak_all(rng)
+    for r in peak[:6]:
+        log(f"kernel peak {json.dumps(r)}")
+    log(f"kernel peak: {len(peak)} shape/case/mode combinations held; "
+        f"peak_scores decisions differing within {PEAK_TIE_ULPS} ulp: "
+        f"{sum(r['decisions_differing'] for r in peak)}")
 
     counts, serving, stages = main_path()
     log("serving " + json.dumps({"card": card, "model": f"FCOS {BACKBONE} FPN",
@@ -917,9 +1478,41 @@ def main() -> None:
         "card": card, "model": f"FCOS {BACKBONE} FPN", "canvas": CANVAS,
         "dtype": "float32", "classes": NUM_CLASSES, **training}))
     log("cli " + json.dumps(cli_path()))
-    counts = {**counts, "focal": train_counts["focal_fwd"]}
+
+    cn_counts, cn_serving, cn_stages = centernet_serving_path()
+    log("centernet_serving " + json.dumps({
+        "card": card, "model": f"CenterNetFPNSingle {BACKBONE}",
+        "canvas": CANVAS, "dtype": "float32", "buckets": BUCKETS,
+        "requests": REQUESTS, **cn_serving, "stage_ms": cn_stages}))
+    cn_train_counts, cn_training = centernet_train_path()
+    log("centernet_training " + json.dumps({
+        "card": card, "model": f"CenterNetFPNSingle {BACKBONE}",
+        "canvas": CANVAS, "dtype": "float32", "classes": NUM_CLASSES,
+        **cn_training}))
+    log("centernet_cli " + json.dumps(centernet_cli_path()))
+    s8_train_counts, s8_training = s8_train_path()
+    log("centernet_s8_training " + json.dumps({
+        "card": card, "model": f"CenterNetS8 {BACKBONE}", "dtype": "float32",
+        "classes": NUM_CLASSES, **s8_training}))
+    log("centernet_s8_cli " + json.dumps(s8_cli_path()))
+
+    by_path = {
+        "nms_sweep": {"fcos_serving": counts["nms_sweep"]},
+        "dense_nms": {"fcos_serving": counts["dense_nms"],
+                      "centernet_serving": cn_counts["dense_nms"]},
+        "focal": {"fcos_training": train_counts["focal_fwd"],
+                  "centernet_training": cn_train_counts["focal_fwd"],
+                  "centernet_s8_training": s8_train_counts["focal_fwd"]},
+        "peak": {"centernet_serving": cn_counts["peak"]},
+    }
+    for name, paths in by_path.items():
+        check(all(n > 0 for n in paths.values()),
+              f"{name} was launched no time on a path that runs it: {paths}")
+    counts = {name: sum(paths.values()) for name, paths in by_path.items()}
+    focal[0]["launches_bwd"] = (train_counts["focal_bwd"]
+                                + cn_train_counts["focal_bwd"]
+                                + s8_train_counts["focal_bwd"])
     levels = focal[:len(FOCAL_LEVELS)]
-    focal[0]["launches_bwd"] = train_counts["focal_bwd"]
     focal[0]["all_levels_fwd_ms"] = sum(r["ms"] for r in levels)
     focal[0]["all_levels_fwd_bwd_ms"] = sum(r["fwd_bwd_ms"] for r in levels)
     focal[0]["all_levels_fwd_bwd_call_ms"] = sum(
@@ -932,12 +1525,15 @@ def main() -> None:
                       "detectax/ops/pallas/nms_kernel.py:247", dense),
         "focal": ("detectax_torch/kernels/csrc/focal.cu",
                   "detectax/ops/pallas/focal.py:75", focal),
+        "peak": ("detectax_torch/kernels/csrc/peak.cu",
+                 "detectax/ops/pallas/peak_decode.py:57", peak),
     }
     kernels = []
     for name, (source, replaces, rows) in meta.items():
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": counts[name],
+            "launches_by_path": by_path[name],
             **rows[0], "other_shapes": rows[1:],
         })
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")

@@ -7,7 +7,9 @@ imports `torch` and numpy only — never `jax`, `flax` or anything under
 `detectax`.
 
 Ported so far: the FCOS serving path (`infer.serving.Predictor` →
-`infer.export.make_serving_fn` → `ops.nms`) and its two NMS kernels.
+`infer.export.make_serving_fn` → `ops.nms`) with its two NMS kernels, the
+FCOS training path with the focal-loss kernel, and the serving and training
+paths of the ResNet-backbone CenterNet family with the peak-decode kernel.
 """
 
 __version__ = "0.1.0"

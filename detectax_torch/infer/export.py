@@ -80,6 +80,25 @@ def fcos_decode_fn(variant: str, canvas: int, center: bool = False):
     raise ValueError(f"unknown FCOS variant {variant!r}")
 
 
+def centernet_decode_fn(family: str, *, box_scales=None, kernels=None):
+    """The decode of a ResNet-backbone CenterNet family:
+    ``"centernet_heatmap"`` (`CenterNetFPNSingle`: peak-masked heatmap
+    decode, whose peak mask is the hand-written kernel on a CUDA tensor;
+    ``kernels="plain"`` takes its plain version) or ``"centernet_s8"``
+    (`CenterNetS8`: scale-slot decode with ``box_scales``, one a slot)."""
+    if family == "centernet_heatmap":
+        return lambda out: P.centernet_heatmap_decode(out, kernels=kernels)
+    if family == "centernet_s8":
+        if box_scales is None:
+            raise ValueError("centernet_s8 decodes with box_scales")
+        scales = [float(s) for s in box_scales]
+        return lambda out: P.centernet_s8_decode(out, box_scales=scales)
+    raise ValueError(f"unknown CenterNet family {family!r}")
+
+
+FAMILIES = ("fcos", "centernet_heatmap", "centernet_s8")
+
+
 def save_bundle(
     out_dir: str,
     model,
@@ -87,17 +106,43 @@ def save_bundle(
     canvas: int,
     buckets: Sequence[int] = (1, 8),
     center: bool = False,
+    box_scales: Sequence[float] | None = None,
     manifest_extra: dict | None = None,
     **nms_config,
 ) -> dict:
-    """Write ``manifest.json`` + ``weights.npz`` for an `FCOS` module.
-    ``nms_config`` takes the NMS keywords of `make_serving_fn` (top_k,
-    iou_thresh, score_thresh, max_outputs, class_aware_candidates)."""
+    """Write ``manifest.json`` + ``weights.npz`` for an `FCOS`,
+    `CenterNetFPNSingle` or `CenterNetS8` module (the module's ``family``
+    goes into the manifest). ``center`` belongs to FCOS, ``box_scales``
+    (one a slot) to `CenterNetS8`. ``nms_config`` takes the NMS keywords of
+    `make_serving_fn` (top_k, iou_thresh, score_thresh, max_outputs,
+    class_aware_candidates)."""
     from detectax_torch.tools.from_flax import save_npz, to_flax
 
     unknown = set(nms_config) - set(_NMS_DEFAULTS)
     if unknown:
         raise TypeError(f"unknown serving options {sorted(unknown)}")
+    family = getattr(model, "family", None)
+    if family not in FAMILIES:
+        raise TypeError(
+            f"save_bundle takes a module of family {FAMILIES}, got "
+            f"{type(model).__name__}")
+    cfg = {
+        "family": family,
+        "num_classes": model.num_classes,
+        "backbone": model.backbone_name,
+        "features": model.features,
+    }
+    extra = {}
+    if family == "fcos":
+        cfg["variant"] = model.variant
+        extra["center"] = bool(center)
+    elif family == "centernet_s8":
+        cfg["n_scales"] = model.n_scales
+        if box_scales is None or len(box_scales) != model.n_scales:
+            raise ValueError(
+                f"a CenterNetS8 bundle needs {model.n_scales} box_scales, "
+                f"got {box_scales!r}")
+        extra["box_scales"] = [float(s) for s in box_scales]
     os.makedirs(out_dir, exist_ok=True)
     params, batch_stats = to_flax(model)
     save_npz(os.path.join(out_dir, WEIGHTS_NAME), params, batch_stats)
@@ -105,14 +150,8 @@ def save_bundle(
         "format": BUNDLE_FORMAT,
         "canvas": int(canvas),
         "buckets": sorted(set(int(b) for b in buckets)),
-        "model": {
-            "family": "fcos",
-            "num_classes": model.num_classes,
-            "variant": model.variant,
-            "backbone": model.backbone_name,
-            "features": model.features,
-        },
-        "center": bool(center),
+        "model": cfg,
+        **extra,
         "nms": {**_NMS_DEFAULTS, **nms_config},
         **(manifest_extra or {}),
     }
@@ -121,11 +160,32 @@ def save_bundle(
     return manifest
 
 
+def _model_and_decode(manifest: dict):
+    """The module (fresh weights) and the decode a manifest describes."""
+    from detectax_torch import models
+
+    cfg = manifest["model"]
+    family = cfg["family"]
+    common = dict(num_classes=cfg["num_classes"], backbone=cfg["backbone"],
+                  features=cfg["features"])
+    if family == "fcos":
+        return (models.FCOS(variant=cfg["variant"], **common),
+                fcos_decode_fn(cfg["variant"], manifest["canvas"],
+                               manifest["center"]))
+    if family == "centernet_heatmap":
+        return models.CenterNetFPNSingle(**common), centernet_decode_fn(family)
+    if family == "centernet_s8":
+        return (models.CenterNetS8(n_scales=cfg["n_scales"], **common),
+                centernet_decode_fn(family,
+                                    box_scales=manifest["box_scales"]))
+    raise ValueError(f"unsupported model family {family!r}; a bundle holds "
+                     f"one of {FAMILIES}")
+
+
 def load_bundle(bundle_dir: str, device=None):
     """Rehydrate a bundle into an `infer.serving.Predictor` on ``device``
     (default CUDA)."""
     from detectax_torch.infer.serving import Predictor
-    from detectax_torch.models import FCOS
     from detectax_torch.tools.from_flax import load_flax, load_npz
 
     with open(os.path.join(bundle_dir, MANIFEST_NAME)) as f:
@@ -135,14 +195,8 @@ def load_bundle(bundle_dir: str, device=None):
             f"{bundle_dir}: not a {BUNDLE_FORMAT} bundle "
             f"(format {manifest.get('format')!r})"
         )
-    cfg = manifest["model"]
-    if cfg["family"] != "fcos":
-        raise ValueError(f"unsupported model family {cfg['family']!r}")
-    model = FCOS(num_classes=cfg["num_classes"], variant=cfg["variant"],
-                 backbone=cfg["backbone"], features=cfg["features"])
+    model, decode = _model_and_decode(manifest)
     load_flax(model, *load_npz(os.path.join(bundle_dir, WEIGHTS_NAME)))
-    decode = fcos_decode_fn(cfg["variant"], manifest["canvas"],
-                            manifest["center"])
     fn = make_serving_fn(model, decode, **manifest["nms"])
     return Predictor.for_model(
         fn, model, canvas=manifest["canvas"], buckets=manifest["buckets"],

@@ -1,9 +1,10 @@
 """Inference: forward → decode → fixed-shape NMS.
 
-Port of the FCOS part of `detectax/infer/predict.py`: per-level decode
-(`ops.boxes`), candidate selection and the shared deterministic NMS
-(`ops.nms`). Everything static-shape; batch-first. The CenterNet, hourglass
-and RetinaNet decoders wait for their model families.
+Port of the FCOS and ResNet-backbone CenterNet parts of
+`detectax/infer/predict.py`: per-level decode (`ops.boxes`), the heatmap
+peak mask (`kernels.peak`), candidate selection and the shared
+deterministic NMS (`ops.nms`). Everything static-shape; batch-first. The
+hourglass and RetinaNet decoders wait for their model families.
 """
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ from typing import Sequence
 
 import torch
 
+from detectax_torch.kernels import peak as peak_lib
 from detectax_torch.ops import nms as nms_lib
 from detectax_torch.ops.boxes import ltrb_to_corners, offset_scale_to_corners
 
@@ -59,6 +61,72 @@ def fcos_center_v1_decode(
         all_boxes.append(boxes.reshape(b, -1, 4))
         all_probs.append(probs.reshape(b, -1, probs.shape[-1]))
     return torch.cat(all_boxes, dim=1), torch.cat(all_probs, dim=1)
+
+
+def centernet_s8_decode(
+    output: torch.Tensor,
+    *,
+    box_scales: Sequence[float],
+    stride: int = 8,
+):
+    """Scale-slot decode: output ``[B,h,w,S,4+nc]``, reg already
+    sigmoid-activated by the model. Returns (boxes ``[B,S*h*w,4]``, probs
+    ``[B,S*h*w,nc]``), slot-major."""
+    b, _, _, s, _ = output.shape
+    if len(box_scales) != s:
+        raise ValueError(f"{len(box_scales)} box scales for {s} slots")
+    all_boxes, all_probs = [], []
+    for slot in range(s):
+        reg = output[:, :, :, slot, :4]
+        cls = output[:, :, :, slot, 4:]
+        boxes = offset_scale_to_corners(
+            reg, float(box_scales[slot]), float(stride))
+        all_boxes.append(boxes.reshape(b, -1, 4))
+        all_probs.append(torch.sigmoid(cls).reshape(b, -1, cls.shape[-1]))
+    return torch.cat(all_boxes, dim=1), torch.cat(all_probs, dim=1)
+
+
+def centernet_heatmap_decode(
+    output: torch.Tensor,
+    *,
+    stride: int = 8,
+    use_centerness: bool = True,
+    peak_mask: bool = True,
+    skip_background: bool = True,
+    kernels=None,
+):
+    """Single-map heatmap decode for `CenterNetFPNSingle`: output
+    ``[B,h,w,4+1+C]`` with raw ltrb reg (stride units), a center-prior
+    channel and C class logits (objectness slot at index 0, dropped when
+    ``skip_background``).
+
+    Pipeline: sigmoid → (×σ(center)) → 3x3 local-peak mask (the CenterNet
+    maxpool-equals trick) → dense (boxes, probs) for
+    `detections_from_dense` / plain top-k.
+
+    The peak mask is the hand-written kernel `kernels.peak.peak_mask_scores`
+    on a CUDA tensor (its plain version on a CPU tensor), taken on the
+    ``[B,h,w,C]`` scores as they lie — no transposition around it.
+    ``kernels="plain"`` runs the plain version whatever the device."""
+    if kernels is None:
+        mask_fn = peak_lib.peak_mask_scores
+    elif kernels == "plain":
+        mask_fn = peak_lib.peak_mask_scores_plain
+    else:
+        raise ValueError(f"kernels must be None or 'plain', got {kernels!r}")
+    b, h, w, _ = output.shape
+    reg = output[..., :4]
+    cen = output[..., 4]
+    cls = output[..., 5:]
+    boxes = ltrb_to_corners(reg, float(stride))
+    probs = torch.sigmoid(cls.to(torch.float32))
+    if skip_background:
+        probs = probs[..., 1:]
+    if use_centerness:
+        probs = probs * torch.sigmoid(cen.to(torch.float32))[..., None]
+    if peak_mask:
+        probs = mask_fn(probs)
+    return boxes.reshape(b, -1, 4), probs.reshape(b, h * w, probs.shape[-1])
 
 
 def detections_from_dense(

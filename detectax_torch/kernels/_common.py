@@ -15,6 +15,8 @@ import shutil
 import subprocess
 import time
 
+import torch
+
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 LIB_NAME = "libdetectax_kernels.so"
@@ -38,6 +40,26 @@ _build_seconds: float | None = None
 
 def round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+MAX_OFFSET = 2 ** 31 - 1  # the elementwise kernels index with 32 bits
+
+
+def as_rows(t: torch.Tensor) -> tuple[torch.Tensor, int, int, int]:
+    """(tensor to keep alive, rows, cols, row stride) of a float32 tensor
+    read as ``[rows, cols]``; copies only a layout that is not rows of
+    unit-stride elements at one stride."""
+    if t.ndim == 0:
+        t = t.reshape(1)
+    cols = t.shape[-1]
+    collapses = t.stride(-1) == 1 and all(
+        t.stride(i) == t.stride(i + 1) * t.shape[i + 1]
+        for i in range(t.ndim - 2))
+    if not collapses:
+        t = t.contiguous()
+    rows = t.numel() // cols if cols else 0
+    stride = t.stride(-2) if t.ndim >= 2 else cols
+    return t, rows, cols, stride
 
 
 def count_launch(name: str) -> None:

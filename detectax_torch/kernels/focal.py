@@ -37,8 +37,6 @@ from detectax_torch.kernels import _common
 from detectax_torch.ops.losses import _stable_bce_terms
 from detectax_torch.ops.losses import focal_loss as focal_loss_plain
 
-_MAX_OFFSET = 2 ** 31 - 1  # the kernels index with 32-bit offsets
-
 
 @functools.cache
 def load_kernels() -> ctypes.CDLL:
@@ -85,23 +83,6 @@ def focal_grad_plain(
     return grad
 
 
-def _as_rows(t: torch.Tensor) -> tuple[torch.Tensor, int, int, int]:
-    """(tensor to keep alive, rows, cols, row stride) of a float32 tensor
-    read as ``[rows, cols]``; copies only a layout that is not rows of
-    unit-stride elements at one stride."""
-    if t.ndim == 0:
-        t = t.reshape(1)
-    cols = t.shape[-1]
-    collapses = t.stride(-1) == 1 and all(
-        t.stride(i) == t.stride(i + 1) * t.shape[i + 1]
-        for i in range(t.ndim - 2))
-    if not collapses:
-        t = t.contiguous()
-    rows = t.numel() // cols if cols else 0
-    stride = t.stride(-2) if t.ndim >= 2 else cols
-    return t, rows, cols, stride
-
-
 def _prepare(labels, logits, weights):
     if labels.shape != logits.shape:
         raise ValueError(f"labels {tuple(labels.shape)} and logits "
@@ -110,13 +91,13 @@ def _prepare(labels, logits, weights):
         if t is not None and t.device != logits.device:
             raise ValueError(
                 f"{name} lies on {t.device}, logits on {logits.device}")
-    z, rows, cols, z_stride = _as_rows(labels.to(torch.float32))
-    x, _, _, x_stride = _as_rows(logits.detach().to(torch.float32))
+    z, rows, cols, z_stride = _common.as_rows(labels.to(torch.float32))
+    x, _, _, x_stride = _common.as_rows(logits.detach().to(torch.float32))
     w = None
     if weights is not None:
         w = torch.broadcast_to(
             weights.to(torch.float32), logits.shape).contiguous()
-    if rows * max(z_stride, x_stride, cols) > _MAX_OFFSET:
+    if rows * max(z_stride, x_stride, cols) > _common.MAX_OFFSET:
         raise ValueError(
             f"focal_loss indexes with 32-bit offsets: {rows} rows at stride "
             f"{max(z_stride, x_stride, cols)} do not fit")

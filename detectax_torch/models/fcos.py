@@ -37,6 +37,8 @@ class FCOS(nn.Module):
     backbone's BatchNorm on its running statistics under ``train=True``
     (they then neither enter the batch's statistics nor move)."""
 
+    family = "fcos"
+
     def __init__(self, num_classes: int, variant: str = "fcos",
                  backbone: str = "resnet50", features: int = 256,
                  freeze_bn: bool = False,

@@ -1,11 +1,13 @@
-"""FCOS all-in-box label assignment — on the device, fixed shapes, batched.
+"""Label assignment — on the device, fixed shapes, batched.
 
-Port of the FCOS part of `detectax/ops/assign.py` (`fcos_assign`,
-`fcos_assign_level` and their helpers); the other assigners of that file
-are not ported yet. Each level is a broadcast-and-reduce over a padded
-ground-truth array. The JAX package writes the assignment for one image
-and maps it over the batch; here the batch dimension is written out, so
-every function takes a whole padded batch.
+Port of `detectax/ops/assign.py`'s FCOS all-in-box assignment
+(`fcos_assign`, `fcos_assign_level` and their helpers) and of the two
+assigners of the ResNet-backbone CenterNet family
+(`centernet_scale_slot_assign`, `centernet_heatmap_assign`); the other
+assigners of that file are not ported yet. Each is a broadcast-and-reduce
+over a padded ground-truth array. The JAX package writes the assignment
+for one image and maps it over the batch; here the batch dimension is
+written out, so every function takes a whole padded batch.
 
 Inputs
 ------
@@ -104,6 +106,33 @@ def _select_rows(owner: torch.Tensor, *columns: torch.Tensor) -> list:
     return out
 
 
+def _axis_cover(lo_c: torch.Tensor, hi_c: torch.Tensor, n: int):
+    """Cells of one axis that each box covers: the range ``[lo_c, hi_c)``
+    or, where that is empty, the box's centre cell alone. ``lo_c`` /
+    ``hi_c`` are ``[B, N]`` int cell bounds. Returns (cover ``[B, n, N]``,
+    empty ``[B, N]``, centre cell ``[B, N]``)."""
+    empty = hi_c <= lo_c
+    cen_c = torch.clamp(_trunc_int((lo_c + hi_c) * 0.5), 0, n - 1)
+    j = torch.arange(n, dtype=torch.int32, device=lo_c.device)[None, :, None]
+    cover = torch.where(
+        empty[:, None, :],
+        j == cen_c[:, None, :],
+        (j >= lo_c[:, None, :]) & (j < hi_c[:, None, :]),
+    )
+    return cover, empty, cen_c
+
+
+def _smallest_owner(cover: torch.Tensor, area: torch.Tensor):
+    """Per cell the covering box of smallest area, lowest index among equal
+    areas. ``cover`` is ``[B, ..., N]`` bool, ``area`` ``[B, N]``. Returns
+    (owner ``[B, ...]`` index, has ``[B, ...]`` bool)."""
+    area = area.reshape(area.shape[0], *([1] * (cover.ndim - 2)), -1)
+    neg_area = torch.where(
+        cover, -area,
+        torch.full((), NEG_INF, dtype=torch.float32, device=cover.device))
+    return _first_argmax(neg_area), cover.any(dim=-1)
+
+
 def fcos_assign_level(
     gt_yxhw: torch.Tensor,
     gt_labels: torch.Tensor,
@@ -148,37 +177,16 @@ def fcos_assign_level(
     y_hi_c = torch.clamp_max(_trunc_int((cy + sh / 2) * h_ratio) + 1, hm)
     x_hi_c = torch.clamp_max(_trunc_int((cx + sw / 2) * w_ratio) + 1, wm)
 
-    deg_y = y_hi_c <= y_lo_c
-    deg_x = x_hi_c <= x_lo_c
-    y_cen_c = torch.clamp(_trunc_int((y_lo_c + y_hi_c) * 0.5), 0, hm - 1)
-    x_cen_c = torch.clamp(_trunc_int((x_lo_c + x_hi_c) * 0.5), 0, wm - 1)
-
-    jy = torch.arange(hm, dtype=torch.int32, device=dev)
-    jx = torch.arange(wm, dtype=torch.int32, device=dev)
-    jy_ = jy[None, :, None]  # [1, hm, 1] against [B, 1, N]
-    jx_ = jx[None, :, None]
-    cover_y = torch.where(
-        deg_y[:, None, :],
-        jy_ == y_cen_c[:, None, :],
-        (jy_ >= y_lo_c[:, None, :]) & (jy_ < y_hi_c[:, None, :]),
-    )  # [B, hm, N]
-    cover_x = torch.where(
-        deg_x[:, None, :],
-        jx_ == x_cen_c[:, None, :],
-        (jx_ >= x_lo_c[:, None, :]) & (jx_ < x_hi_c[:, None, :]),
-    )  # [B, wm, N]
+    cover_y, deg_y, y_cen_c = _axis_cover(y_lo_c, y_hi_c, hm)  # [B, hm, N]
+    cover_x, deg_x, x_cen_c = _axis_cover(x_lo_c, x_hi_c, wm)  # [B, wm, N]
     cover = (
         cover_y[:, :, None, :] & cover_x[:, None, :, :]
         & in_bin[:, None, None, :]
     )  # [B, hm, wm, N]
-
-    # Smallest-area owner per cell, lowest index among equal areas.
     area = bh * bw
-    neg_area = torch.where(
-        cover, -area[:, None, None, :],
-        torch.full((), NEG_INF, dtype=torch.float32, device=dev))
-    owner = _first_argmax(neg_area)  # [B, hm, wm]
-    has = cover.any(dim=-1)
+    owner, has = _smallest_owner(cover, area)  # [B, hm, wm]
+    jy = torch.arange(hm, dtype=torch.int32, device=dev)
+    jx = torch.arange(wm, dtype=torch.int32, device=dev)
 
     gy = (torch.arange(hm, dtype=torch.float32, device=dev) + 0.5)[:, None]
     gx = (torch.arange(wm, dtype=torch.float32, device=dev) + 0.5)[None, :]
@@ -242,3 +250,220 @@ def fcos_assign(
         outs.append(o)
         counts.append(n)
     return tuple(outs), torch.stack(counts, dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# CenterNet scale-slot assignment
+# ---------------------------------------------------------------------------
+
+
+def centernet_scale_slot_assign(
+    gt_yxhw: torch.Tensor,
+    gt_labels: torch.Tensor,
+    gt_valid: torch.Tensor,
+    *,
+    img_dim: tuple,
+    img_pad: tuple | None = None,
+    num_classes: int,
+    box_scales: Sequence[float] = (32.0, 64.0, 128.0, 256.0, 512.0),
+    stride: int = 8,
+    gaussian_cls: bool = False,
+):
+    """Single stride-8 map with S scale slots; centroid-only assignment of
+    a padded batch.
+
+    slot = first scale with ``max(h, w) < box_scales[s]`` (boxes larger
+    than every scale go to the last slot); the image is center-padded into
+    ``img_pad``, regression is ``(y_off/stride, x_off/stride, h/scale,
+    w/scale)`` at the centroid cell. Returns (``[B, hm, wm, S, 4+nc]`` with
+    layout ``[reg(4), one_hot(nc)]``, n_targets ``[B]``).
+
+    ``gaussian_cls=True`` splats a CenterNet-style Gaussian (peak 1.0 at
+    the centroid cell, sigma from box size) into the assigned slot's class
+    channel instead of a lone one-hot cell; the loss keys positives on
+    ``cls >= 1.0`` so regression stays centroid-only. Each box's Gaussian
+    reaches its (slot, class) channel through a scatter with an ``amax``
+    reduction — a maximum does not depend on the order of its terms, so
+    the result is the same from run to run.
+    """
+    dev = gt_yxhw.device
+    gt_yxhw = gt_yxhw.to(torch.float32)
+    gt_valid = gt_valid.to(torch.bool)
+    labels = gt_labels.to(torch.int64)
+    img_pad = img_pad or img_dim
+    hm = int(img_pad[0]) // stride
+    wm = int(img_pad[1]) // stride
+    pad_y = int((img_pad[0] - img_dim[0]) / 2.0)
+    pad_x = int((img_pad[1] - img_dim[1]) / 2.0)
+    n_slots = len(box_scales)
+    batch = gt_yxhw.shape[0]
+
+    y_c, x_c, bh, bw = _gt_pixels(gt_yxhw, img_dim)        # [B, N] each
+    box_d = torch.maximum(bh, bw)
+    scales = torch.tensor(list(box_scales), dtype=torch.float32, device=dev)
+    fits = box_d[..., None] < scales                        # [B, N, S]
+    slot = _first_argmax(fits.to(torch.int32))
+    slot = torch.where(fits.any(dim=-1), slot, n_slots - 1)
+
+    y_cell = _trunc_int((pad_y + y_c) / stride)
+    x_cell = _trunc_int((pad_x + x_c) / stride)
+    in_map = (y_cell >= 0) & (y_cell < hm) & (x_cell >= 0) & (x_cell < wm)
+    valid = gt_valid & in_map
+
+    y_off = (pad_y + y_c - y_cell.to(torch.float32) * stride) / stride
+    x_off = (pad_x + x_c - x_cell.to(torch.float32) * stride) / stride
+    slot_scale = scales[slot]
+    reg = torch.stack([y_off, x_off, bh / slot_scale, bw / slot_scale],
+                      dim=-1)                               # [B, N, 4]
+
+    jy = torch.arange(hm, dtype=torch.int32, device=dev)
+    jx = torch.arange(wm, dtype=torch.int32, device=dev)
+    js = torch.arange(n_slots, dtype=torch.int64, device=dev)
+    cover = (
+        (jy[None, :, None, None, None] == y_cell[:, None, None, None, :])
+        & (jx[None, None, :, None, None] == x_cell[:, None, None, None, :])
+        & (js[None, None, None, :, None] == slot[:, None, None, None, :])
+        & valid[:, None, None, None, :]
+    )  # [B, hm, wm, S, N]
+    area = bh * bw
+    owner, has = _smallest_owner(cover, area)
+
+    one_hot = torch.nn.functional.one_hot(labels, num_classes) \
+        .to(torch.float32)
+    reg_o, cls = _select_rows(owner, reg, one_hot)
+    has_f = has[..., None].to(torch.float32)
+    cls = cls * has_f
+    if gaussian_cls:
+        # per-box spatial Gaussian, peak 1.0 at its centroid cell
+        gy = jy.to(torch.float32)[None, :, None, None]      # [1, hm, 1, 1]
+        gx = jx.to(torch.float32)[None, None, :, None]      # [1, 1, wm, 1]
+        sigma = torch.clamp_min(torch.sqrt(area) / (3.0 * stride), 1.0)
+        d2 = (
+            (gy - y_cell.to(torch.float32)[:, None, None, :]) ** 2
+            + (gx - x_cell.to(torch.float32)[:, None, None, :]) ** 2
+        )                                                   # [B, hm, wm, N]
+        g = torch.exp(-d2 / (2.0 * sigma[:, None, None, :] ** 2))
+        g = torch.where(valid[:, None, None, :], g, torch.zeros_like(g))
+        # boxes grouped by slot * nc + label; invalid boxes go to a dump
+        # channel. Channels start at 0, the floor of an empty group.
+        sid = torch.where(valid, slot * num_classes + labels,
+                          n_slots * num_classes)            # [B, N]
+        seg = torch.zeros((batch, n_slots * num_classes + 1, hm, wm),
+                          dtype=torch.float32, device=dev)
+        seg.scatter_reduce_(
+            1, sid[:, :, None, None].expand(-1, -1, hm, wm),
+            g.permute(0, 3, 1, 2), "amax", include_self=True)
+        gauss = seg[:, :-1].reshape(batch, n_slots, num_classes, hm, wm) \
+            .permute(0, 3, 4, 1, 2)                         # [B,hm,wm,S,nc]
+        cls = torch.maximum(cls, gauss)  # keep exact 1.0 peaks
+    out = torch.cat([reg_o * has_f, cls], dim=-1)
+    return out, valid.sum(dim=-1, dtype=torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# CenterNet heatmap assignment
+# ---------------------------------------------------------------------------
+
+
+def centernet_heatmap_assign(
+    gt_yxhw: torch.Tensor,
+    gt_labels: torch.Tensor,
+    gt_valid: torch.Tensor,
+    *,
+    img_dim: tuple,
+    img_pad: tuple | None = None,
+    num_classes: int,
+    stride: int = 8,
+    sigma: float = 0.25,
+    spread: float = 8.0,
+    heatmap_kind: str = "pseudo",
+):
+    """Single-map CenterNet assignment with a center-prior heatmap channel,
+    for a padded batch.
+
+    ltrb targets (full-box corners) are filled over the ``sigma``-shrunken
+    box region; the center channel holds a normalized center-distance
+    prior — the pseudo-Gaussian ``1/(d^spread)`` product, or a true
+    Gaussian (``heatmap_kind="gaussian"``, σ = max(1, sqrt(box area in
+    cells))). The center cell of the shrunken region is forced to 1.0.
+    Returns (``[B, hm, wm, 5+nc]``, n_targets ``[B]``).
+    """
+    if heatmap_kind not in ("pseudo", "gaussian"):
+        raise ValueError(f"unknown heatmap_kind {heatmap_kind!r}")
+    dev = gt_yxhw.device
+    gt_yxhw = gt_yxhw.to(torch.float32)
+    gt_valid = gt_valid.to(torch.bool)
+    img_pad = img_pad or img_dim
+    hm = int(img_pad[0]) // stride
+    wm = int(img_pad[1]) // stride
+    h_ratio = img_dim[0] / stride
+    w_ratio = img_dim[1] / stride
+    h_lim = int(img_dim[0]) // stride
+    w_lim = int(img_dim[1]) // stride
+    cy, cx, sh, sw = gt_yxhw.unbind(-1)  # [B, N] each
+
+    _, _, bh, bw = _gt_pixels(gt_yxhw, img_dim)
+    y_lo_px = (cy - 0.5 * sh) * img_dim[0]
+    x_lo_px = (cx - 0.5 * sw) * img_dim[1]
+    y_hi_px = (cy + 0.5 * sh) * img_dim[0]
+    x_hi_px = (cx + 0.5 * sw) * img_dim[1]
+
+    # Shrunken-box cell region; the upper bound is clipped to
+    # img_dim/stride, not img_pad/stride (kept from the reference).
+    y_lo_c = torch.clamp_min(
+        1 + _trunc_int((cy - sigma * sh / 2) * h_ratio), 0)
+    x_lo_c = torch.clamp_min(
+        1 + _trunc_int((cx - sigma * sw / 2) * w_ratio), 0)
+    y_hi_c = torch.clamp_max(
+        1 + _trunc_int((cy + sigma * sh / 2) * h_ratio), h_lim)
+    x_hi_c = torch.clamp_max(
+        1 + _trunc_int((cx + sigma * sw / 2) * w_ratio), w_lim)
+
+    cover_y, _, y_cen_c = _axis_cover(y_lo_c, y_hi_c, hm)  # [B, hm, N]
+    cover_x, _, x_cen_c = _axis_cover(x_lo_c, x_hi_c, wm)  # [B, wm, N]
+    cover = (
+        cover_y[:, :, None, :] & cover_x[:, None, :, :]
+        & gt_valid[:, None, None, :]
+    )  # [B, hm, wm, N]
+    area = bh * bw
+    owner, has = _smallest_owner(cover, area)
+    jy = torch.arange(hm, dtype=torch.int32, device=dev)
+    jx = torch.arange(wm, dtype=torch.int32, device=dev)
+
+    gy = (torch.arange(hm, dtype=torch.float32, device=dev) + 0.5)[:, None]
+    gx = (torch.arange(wm, dtype=torch.float32, device=dev) + 0.5)[None, :]
+    one_hot = torch.nn.functional.one_hot(
+        gt_labels.to(torch.int64), num_classes).to(torch.float32)
+    (y_lo_o, x_lo_o, y_hi_o, x_hi_o, mu_y, mu_x, area_o,
+     cls) = _select_rows(
+        owner, y_lo_px, x_lo_px, y_hi_px, x_hi_px,
+        y_cen_c.to(torch.float32), x_cen_c.to(torch.float32), area, one_hot,
+    )
+    t = torch.clamp_min(gy - y_lo_o / stride, 0.0)
+    b = torch.clamp_min(y_hi_o / stride - gy, 0.0)
+    l = torch.clamp_min(gx - x_lo_o / stride, 0.0)
+    r = torch.clamp_min(x_hi_o / stride - gx, 0.0)
+
+    # Center-prior heatmap around the owner's (shrunken-region) center cell.
+    dy = gy - mu_y
+    dx = gx - mu_x
+    if heatmap_kind == "pseudo":
+        # 1/(d^spread) per axis, normalized so the closest cell ~= 1. Grid
+        # offsets of 0.5 keep |d| >= 0.5, and the per-box max over the
+        # region is approximated by the value at the center cell
+        # (|dy| = |dx| = 0.5).
+        g = 1.0 / torch.pow(torch.abs(dy) + EPS, spread)
+        g = g / torch.pow(torch.abs(dx) + EPS, spread)
+        norm = 1.0 / 0.5 ** (2.0 * spread)
+        cen = torch.clamp(g / norm, 0.0, 1.0)
+    else:
+        std = torch.clamp_min(torch.sqrt(area_o / (stride * stride)), 1.0)
+        cen = torch.exp(-(dy * dy + dx * dx) / (2.0 * std * std))
+    is_center = (jy[None, :, None].to(torch.float32) == mu_y) & (
+        jx[None, None, :].to(torch.float32) == mu_x)
+    cen = torch.where(is_center, torch.ones((), device=dev), cen)
+    out = torch.cat(
+        [torch.stack([t, b, l, r], dim=-1), cen[..., None], cls], dim=-1
+    )
+    out = out * has[..., None].to(torch.float32)
+    return out, gt_valid.sum(dim=-1, dtype=torch.int32)

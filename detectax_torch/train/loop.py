@@ -113,7 +113,7 @@ def make_train_step(
 
     Args:
       assign_fn: ``(boxes[B,N,4], labels[B,N], valid[B,N]) -> y_true`` for
-        a whole padded batch (a tuple of target maps), or with a fourth
+        a whole padded batch (one target map, or a tuple of them), or with a fourth
         argument ``img_hw`` taken from the batch's image shape.
       loss_fn: ``(y_true, y_pred) -> dict`` with a "total" entry
         (per-example-sum; divided by batch size here).
@@ -183,9 +183,10 @@ def make_train_step(
             grads, losses = None, None
             for lo in range(0, bsz, microbatch):
                 sl = slice(lo, lo + microbatch)
-                g, l = forward_grads(
-                    images[sl], tuple(t[sl] for t in y_true), float(bsz),
-                    raw)
+                # one target map (a tensor) or one a level (a sequence)
+                chunk = (y_true[sl] if isinstance(y_true, torch.Tensor)
+                         else tuple(t[sl] for t in y_true))
+                g, l = forward_grads(images[sl], chunk, float(bsz), raw)
                 grads = g if grads is None else [
                     a + b for a, b in zip(grads, g)]
                 losses = l if losses is None else {

@@ -1,7 +1,9 @@
-"""FCOS loss composition over the shared `ops.losses` library.
+"""Loss compositions over the shared `ops.losses` library.
 
-Port of `detectax/train/losses.py::fcos_loss`; the other detectors'
-compositions of that file are not ported yet. Returns per-example-sum
+Port of `detectax/train/losses.py::fcos_loss` (which also serves the
+single-map heatmap CenterNet, as one level) and `centernet_s8_loss`; the
+other detectors' compositions of that file are not ported yet. Each
+returns per-example-sum
 scalars; the train step divides by the batch size, or by ``num_pos`` — the
 number of positive cells in the batch, which the dict carries — under
 ``loss_norm="pos"``.
@@ -75,3 +77,28 @@ def fcos_loss(
         "cls": cls_loss, "reg": reg_loss, "cen": cen_loss, "total": total,
         "num_pos": num_pos,
     }
+
+
+def centernet_s8_loss(
+    y_true: torch.Tensor,
+    y_pred: torch.Tensor,
+    *,
+    cls_lambda: float = 1.0,
+    reg_lambda: float = 1.0,
+    kernels=None,
+) -> dict:
+    """Scale-slot loss over ``[B, h, w, S, 4+nc]`` maps: focal on the class
+    channels, smooth-L1 on the regression masked to the positives.
+
+    Positives are cells whose class target reaches 1.0 — identical to
+    (obj > 0) for one-hot targets, and keeps regression centroid-only
+    under `gaussian_cls` soft targets (tails < 1.0). ``kernels`` as in
+    `fcos_loss`."""
+    focal_loss = _focal_fn(kernels)
+    obj = y_true[..., 4:].amax(dim=-1)
+    mask = (obj >= 1.0 - 1e-6).to(torch.float32)
+    cls_loss = focal_loss(y_true[..., 4:], y_pred[..., 4:])
+    reg_loss = smooth_l1_loss(y_true[..., :4], y_pred[..., :4], mask=mask)
+    total = cls_lambda * cls_loss + reg_lambda * reg_loss
+    return {"cls": cls_loss, "reg": reg_loss, "total": total,
+            "num_pos": mask.sum()}

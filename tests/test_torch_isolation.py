@@ -65,6 +65,64 @@ def test_port_serves_without_importing_jax_or_detectax(tmp_path):
     assert "served" in res.stdout and "trained 1" in res.stdout
 
 
+CENTERNET_SLICE = r"""
+import sys
+import numpy as np
+import torch
+from detectax_torch.cli import infer_centernet, train_centernet_crowdhuman
+from detectax_torch.cli import train_centernet_heatmap
+from detectax_torch.infer.export import centernet_decode_fn, make_serving_fn
+from detectax_torch.infer.serving import Predictor
+from detectax_torch.kernels import peak
+from detectax_torch.models import CenterNetFPNSingle, CenterNetS8
+
+served = 0
+for model, scales in ((CenterNetFPNSingle(3, backbone="tiny"), None),
+                      (CenterNetS8(3, n_scales=2, backbone="tiny"),
+                       (32.0, 64.0))):
+    fn = make_serving_fn(
+        model, centernet_decode_fn(model.family, box_scales=scales),
+        top_k=32, max_outputs=8, score_thresh=0.0)
+    pred = Predictor.for_model(fn, model, canvas=64, buckets=(2,),
+                               device="cpu")
+    out = pred.predict(np.zeros((3, 64, 64, 3), np.float32))
+    assert out["boxes"].shape == (3, 8, 4), out["boxes"].shape
+    served += int(out["num_valid"].sum())
+masked = peak.peak_scores(torch.zeros(4, 4, 2))
+assert masked.shape == (4, 4, 2) and bool((masked == 0.5).all())
+common = ["--device", "cpu", "--backbone", "tiny", "--canvas", "64",
+          "--batch_size", "2", "--synthetic_n", "4", "--max_steps", "1",
+          "--display_step", "1", "--out_dir", sys.argv[1] + "/out"]
+trained = 0
+for i, main in enumerate((train_centernet_heatmap.main,
+                          train_centernet_crowdhuman.main)):
+    summary = main(common + ["--ckpt_dir", sys.argv[1] + "/ckpt%%d" %% i])
+    trained += summary["final_step"]
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in %r)
+assert not bad, bad
+assert "triton" not in sys.modules
+import detectax_torch.kernels._common as kc
+assert kc._lib is None and kc.build_seconds() is None  # nothing was built
+assert kc.launch_counts() == {}
+print("served", served, "trained", trained)
+""" % (FORBIDDEN,)
+
+
+def test_centernet_slice_runs_without_jax_or_a_build(tmp_path):
+    """Both CenterNet families served and trained for a step in a fresh
+    interpreter on the CPU: no forbidden module, no `triton`, no build and
+    no kernel launch (the wrappers ran their plain versions)."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    res = subprocess.run(
+        [sys.executable, "-c", CENTERNET_SLICE, str(tmp_path)], cwd=REPO,
+        env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "served" in res.stdout and "trained 2" in res.stdout
+
+
 def test_every_port_module_imports_without_a_build():
     """Importing any module of the port builds nothing and imports neither
     `triton` nor a forbidden package (the kernels are built at first use
@@ -75,6 +133,10 @@ def test_every_port_module_imports_without_a_build():
         for p in _port_sources() if "detectax_torch" in p)
     assert "detectax_torch.train.loop" in mods
     assert "detectax_torch.kernels.focal" in mods
+    for new in ("kernels.peak", "models.centernet", "cli.infer_centernet",
+                "cli.train_centernet_heatmap",
+                "cli.train_centernet_crowdhuman"):
+        assert f"detectax_torch.{new}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

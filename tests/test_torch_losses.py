@@ -142,14 +142,14 @@ def test_focal_grad_is_the_true_derivative_at_zero():
 
 def test_focal_rows_layout_reads_strided_views_in_place():
     y = torch.arange(2 * 3 * 3 * 9, dtype=torch.float32).reshape(2, 3, 3, 9)
-    t, rows, cols, stride = KF._as_rows(y[..., 5:])
+    t, rows, cols, stride = KF._common.as_rows(y[..., 5:])
     assert (rows, cols, stride) == (18, 4, 9)
     assert t.data_ptr() == y[..., 5:].data_ptr()      # no copy
-    t, rows, cols, stride = KF._as_rows(y[..., 4])     # stride 9 elements
+    t, rows, cols, stride = KF._common.as_rows(y[..., 4])     # stride 9 elements
     assert (rows, cols, stride) == (6, 3, 3) and t.is_contiguous()
-    t, rows, cols, stride = KF._as_rows(y.permute(0, 3, 1, 2))
+    t, rows, cols, stride = KF._common.as_rows(y.permute(0, 3, 1, 2))
     assert t.is_contiguous() and (rows, cols, stride) == (54, 3, 3)
-    assert KF._as_rows(torch.tensor(1.0))[1:] == (1, 1, 1)
+    assert KF._common.as_rows(torch.tensor(1.0))[1:] == (1, 1, 1)
     with pytest.raises(ValueError, match="differ in shape"):
         KF._prepare(y, y[..., 5:], None)
 
