@@ -8,11 +8,17 @@ order:
 1. device: name, ``nvidia-smi`` name and power limit, TF32 switches (off);
 2. builds the CUDA kernels from ``detectax_torch/kernels/csrc`` and loads
    them;
-3. holds each kernel against its plain PyTorch version on the card, at the
-   shapes of the main paths: the two NMS kernels to an exact match on
-   inputs (numpy, seeded) with heavy overlap, exact score ties,
-   duplicates, degenerate boxes and padding; the focal-loss kernel
-   (forward sum rtol 2e-4, dlogits atol 1e-5, two runs bitwise equal) at
+3. times the empty steps of the NMS designs (``kernels/probe.py``: the
+   block round, the cluster rounds at cluster sizes 1-16, the sweep's
+   chain step), then holds each kernel against its plain PyTorch version
+   on the card, at the shapes of the main paths: the two NMS kernels to an
+   exact match, two runs bitwise equal, on inputs (numpy, seeded) with
+   heavy overlap, exact score ties, duplicates, degenerate boxes and
+   padding, and at edge cases (K = 256, K not a multiple of 64, all
+   padding, one class; M below the cluster size, M = 1, nothing above the
+   threshold, one class, class-agnostic, no classes); `nms_sweep`'s mask
+   kernel word for word against `suppression_bits_plain`; the focal-loss
+   kernel (forward sum rtol 2e-4, dlogits atol 1e-5, two runs bitwise equal) at
    the five level shapes, with a weight mask, with logits of +-100, and
    on a strided view; the peak-decode kernel in both modes
    (`peak_mask_scores` to an exact match, NaN pattern included;
@@ -78,7 +84,7 @@ from detectax_torch.kernels import _common as kcommon
 from detectax_torch.kernels import focal as KF
 from detectax_torch.kernels import nms as K
 from detectax_torch.kernels import peak as KP
-from detectax_torch.kernels.probe import barrier_probe
+from detectax_torch.kernels import probe as KB
 from detectax_torch.models import FCOS, CenterNetFPNSingle, CenterNetS8
 from detectax_torch.ops.assign import (
     centernet_heatmap_assign,
@@ -131,10 +137,15 @@ PEAK_TIE_ULPS = 2     # a keep/zero decision may differ only this close
 
 BOUND_NOTE = (
     "bound_ms is the larger of bytes/3.35e12 and operations/67e12 and "
-    "bound_by names which; the chain of dependent rounds is not part of "
-    "it: chain_ms = rounds_max x the empty round measured in this run, the "
-    "floor of a one-block-per-image design, stands beside it as its own "
-    "key. focal: launches counts the forward launches of the training "
+    "bound_by names which. The chain of dependent steps is not part of it: "
+    "chain_ms, a key of its own, is the floor of each NMS design measured "
+    "in this run - nms_sweep: K x an empty chain step (chain_probe, "
+    "ns_per_step beside it is the kernel's own); dense_nms: rounds_max x "
+    "the empty round of its cluster exchange (cluster_probe "
+    "exchange_round) at the cluster size and threads the launch used "
+    "(us_per_round beside it is the kernel's own). NMS ms is device time "
+    "of calls queued behind a blocker, call_ms what a caller on this host "
+    "sees. focal: launches counts the forward launches of the training "
     "run (launches_bwd the backward ones); ms, plain_ms and library_ms "
     "are device times of the forward queued behind a blocker, the "
     "call_ms keys what a caller on this host sees; an element is charged "
@@ -245,14 +256,32 @@ def queued_ms(fn, *, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def barrier_round_us(blocks: int = 8) -> float:
-    """Microseconds of one empty dependent round (shared-memory exchange +
-    barrier of a 1024-thread block), as the slope between a short and a
-    long chain so that the launch itself cancels."""
-    short, long = 1000, 11000
-    t = {n: time_ms(lambda n=n: barrier_probe(n, blocks, DEV),
-                    warmup=2, reps=10) for n in (short, long)}
+def _slope(run, short: int, long: int) -> float:
+    """Microseconds a step of `run(steps)`, as the slope between a short and
+    a long chain so that the launch itself cancels."""
+    t = {n: time_ms(lambda n=n: run(n), warmup=2, reps=10)
+         for n in (short, long)}
     return (t[long] - t[short]) * 1e3 / (long - short)
+
+
+def barrier_round_us(blocks: int = 8) -> float:
+    """One empty round of a one-block-per-image design: shared-memory
+    exchange + barrier of a 1024-thread block."""
+    return _slope(lambda n: KB.barrier_probe(n, blocks, DEV), 1000, 11000)
+
+
+@functools.cache
+def cluster_round_us(cluster: int, threads: int,
+                     mode: str = "exchange_round") -> float:
+    """One empty round across 8 clusters of `cluster` blocks of `threads`
+    threads (`probe.CLUSTER_MODES`)."""
+    return _slope(lambda n: KB.cluster_probe(n, 8, cluster, DEV, threads,
+                                             mode), 1000, 11000)
+
+
+def chain_step_ns() -> float:
+    """One empty step of the sweep's chain, 8 warps on 8 SMs."""
+    return _slope(lambda n: KB.chain_probe(n, 8, DEV), 6400, 64000) * 1e3
 
 
 def bound(bytes_moved: int, flops: int) -> tuple[float, str]:
@@ -266,30 +295,62 @@ def bound(bytes_moved: int, flops: int) -> tuple[float, str]:
 # phase 3: each kernel against its plain version
 # --------------------------------------------------------------------------
 
-def check_sweep(rng, batch, k, *, class_aware, with_valid):
+def check_sweep(rng, batch, k, *, class_aware, with_valid, case="crowded",
+                timed=True):
+    """`nms_sweep` and its mask kernel alone against the plain versions on
+    score-sorted crowded boxes: keep bits and mask words exactly, two runs
+    bitwise equal. `case`: "crowded", "all_invalid" (every candidate
+    padding), "one_class" (every candidate of class 3)."""
     boxes, scores, classes = make_candidates(
         rng, batch, k, pad_tail=k // 16 if with_valid else 0)
+    if case == "one_class":
+        classes[:] = 3
     order = np.argsort(-scores, axis=1, kind="stable")
     take = lambda a: np.take_along_axis(
         a, order if a.ndim == 2 else order[..., None], axis=1)
     b, c = cuda(take(boxes)), cuda(take(classes))
     v = cuda(take(scores) >= 0) if with_valid else None
+    if case == "all_invalid":
+        v = torch.zeros((batch, k), dtype=torch.bool, device=DEV)
     args = (b, 0.5)
     kw = dict(valid=v, classes=c if class_aware else None)
+    name = f"nms_sweep B={batch} K={k} class_aware={class_aware} {case}"
 
     got = K.nms_sweep(*args, **kw)
+    again = K.nms_sweep(*args, **kw)
+    bits = K.suppression_bits(b, 0.5, kw["classes"])
     torch.cuda.synchronize()
     want = K.nms_sweep_plain(*args, **kw)
+    want_bits = K.suppression_bits_plain(b, 0.5, kw["classes"])
     mismatches = int((got != want).sum())
+    words_differing = int((bits != want_bits).sum())
     check(got.dtype == torch.bool and got.shape == (batch, k),
-          f"nms_sweep K={k}: wrong output {got.dtype} {tuple(got.shape)}")
+          f"{name}: wrong output {got.dtype} {tuple(got.shape)}")
     check(mismatches == 0,
-          f"nms_sweep K={k} class_aware={class_aware}: {mismatches} keep "
-          f"bits differ from the plain version")
+          f"{name}: {mismatches} keep bits differ from the plain version")
+    check(words_differing == 0,
+          f"{name}: {words_differing} mask words differ from "
+          f"suppression_bits_plain")
+    check(torch.equal(got, again),
+          f"{name}: two runs on the same input differ")
     kept = int(want.sum())
-    check(0 < kept < batch * k, f"nms_sweep K={k}: degenerate test input")
+    if case == "all_invalid":
+        check(kept == 0, f"{name}: padding survived")
+    else:
+        check(0 < kept < batch * k, f"{name}: degenerate test input")
+    row = {"shape": {"B": batch, "K": k, "class_aware": class_aware,
+                     "valid_mask": v is not None, "case": case},
+           "max_abs_err": float(mismatches),
+           "mask_words_differing": words_differing,
+           "plan": K._sweep_plan(k)}
+    if not timed:
+        return row
 
-    ms = time_ms(lambda: K.nms_sweep(*args, **kw), warmup=3, reps=50)
+    ms = queued_ms(lambda: K.nms_sweep(*args, **kw), reps=50)
+    # the mask kernel alone (with the zero fill of its comparison entry)
+    mask_ms = queued_ms(lambda: K.suppression_bits(b, 0.5, kw["classes"]),
+                        reps=50)
+    call_ms = time_ms(lambda: K.nms_sweep(*args, **kw), warmup=3, reps=50)
     plain_ms = time_ms(lambda: K.nms_sweep_plain(*args, **kw),
                        warmup=1, reps=2)
     # work this data needs: one IoU row (the j > i part) per kept box
@@ -298,41 +359,66 @@ def check_sweep(rng, batch, k, *, class_aware, with_valid):
     nbytes = batch * k * (16 + (4 if class_aware else 0)
                           + (1 if with_valid else 0) + 1)
     bound_ms, bound_by = bound(nbytes, pairs * SWEEP_FLOPS_PER_PAIR)
-    return {
-        "shape": {"B": batch, "K": k, "class_aware": class_aware,
-                  "valid_mask": with_valid},
-        "max_abs_err": float(mismatches), "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None, "rounds_per_image": kept / batch,
+    row.update({
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": None, "call_ms": call_ms,
+        "mask_ms": mask_ms, "rounds_per_image": kept / batch,
         "rounds_max": int(want.sum(dim=1).max()),
-        "us_per_round": ms * 1e3 / (kept / batch),
-    }
+        "ns_per_step": ms * 1e6 / k,
+    })
+    return row
 
 
-def check_dense(rng, batch, m, max_outputs):
+def check_dense(rng, batch, m, max_outputs, *, case="crowded",
+                class_aware=True, timed=True):
+    """`dense_nms` against its plain version: every output exactly, two
+    runs bitwise equal. `case`: "crowded", "below_threshold" (every score
+    under score_thresh), "one_class" (every candidate of class 2),
+    "no_classes" (classes=None)."""
     boxes, scores, classes = make_candidates(rng, batch, m)
+    if case == "below_threshold":
+        scores = (scores * 0.04).astype(np.float32)
+    if case == "one_class":
+        classes[:] = 2
     b, s, c = cuda(boxes), cuda(scores), cuda(classes)
+    if case == "no_classes":
+        c = None
     kw = dict(iou_thresh=0.5, score_thresh=0.05, max_outputs=max_outputs,
-              class_aware=True)
+              class_aware=class_aware)
+    name = f"dense_nms B={batch} M={m} class_aware={class_aware} {case}"
 
     got = K.dense_nms(b, s, c, **kw)
+    again = K.dense_nms(b, s, c, **kw)
     torch.cuda.synchronize()
     want = K.dense_nms_plain(b, s, c, **kw)
     err = 0.0
     for key in ("boxes", "scores", "classes", "valid", "num_valid"):
         check(got[key].shape == want[key].shape
               and got[key].dtype == want[key].dtype,
-              f"dense_nms M={m}: {key} is {got[key].dtype} "
+              f"{name}: {key} is {got[key].dtype} "
               f"{tuple(got[key].shape)}, plain gives {want[key].dtype} "
               f"{tuple(want[key].shape)}")
         diff = (got[key].double() - want[key].double()).abs().max().item()
         err = max(err, diff)
-    check(err == 0.0, f"dense_nms M={m}: max abs difference {err} from the "
+        check(torch.equal(got[key], again[key]),
+              f"{name}: two runs on the same input differ in {key}")
+    check(err == 0.0, f"{name}: max abs difference {err} from the "
                       f"plain version (exact match expected)")
     nv = want["num_valid"]
-    check(int(nv.min()) > 0, f"dense_nms M={m}: degenerate test input")
+    if case == "below_threshold":
+        check(int(nv.max()) == 0, f"{name}: a score below the threshold "
+                                  f"surfaced")
+    else:  # a handful of candidates may all fall under the threshold
+        check(int(nv.min() if m >= 64 else nv.sum()) > 0,
+              f"{name}: degenerate test input")
+    row = {"shape": {"B": batch, "M": m, "max_outputs": max_outputs,
+                     "class_aware": class_aware, "case": case},
+           "max_abs_err": err, "plan": K._dense_plan(m)}
+    if not timed:
+        return row
 
-    ms = time_ms(lambda: K.dense_nms(b, s, c, **kw), warmup=3, reps=50)
+    ms = queued_ms(lambda: K.dense_nms(b, s, c, **kw), reps=50)
+    call_ms = time_ms(lambda: K.dense_nms(b, s, c, **kw), warmup=3, reps=50)
     plain_ms = time_ms(lambda: K.dense_nms_plain(b, s, c, **kw),
                        warmup=1, reps=2)
     # rounds this data needs: one per survivor, one more to find none left
@@ -342,14 +428,13 @@ def check_dense(rng, batch, m, max_outputs):
     nbytes = batch * (m * 24 + max_outputs * 25)
     bound_ms, bound_by = bound(nbytes, flops)
     mean_rounds = float(rounds.float().mean())
-    return {
-        "shape": {"B": batch, "M": m, "max_outputs": max_outputs},
-        "max_abs_err": err, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None, "rounds_per_image": mean_rounds,
-        "rounds_max": int(rounds.max()),
+    row.update({
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": None, "call_ms": call_ms,
+        "rounds_per_image": mean_rounds, "rounds_max": int(rounds.max()),
         "us_per_round": ms * 1e3 / mean_rounds,
-    }
+    })
+    return row
 
 
 def library_focal(labels, logits, alpha=0.25, gamma=2.0):
@@ -1435,12 +1520,29 @@ def main() -> None:
     round_us = barrier_round_us()
     log(f"empty round (exchange + barrier, 1024 threads, 8 blocks): "
         f"{round_us:.4f} us")
+    step_ns = chain_step_ns()
+    log(f"empty sweep chain step (one warp, 8 images): {step_ns:.4f} ns")
+    cluster_probe = {
+        mode: {str(c): cluster_round_us(c, 384, mode)
+               for c in (1, 2, 4, 8, 16)}
+        for mode in KB.CLUSTER_MODES}
+    log("empty cluster round, us (8 clusters of 384-thread blocks, by "
+        "cluster size): " + json.dumps(cluster_probe))
 
     rng = np.random.default_rng(SEED)
+    edge = np.random.default_rng(SEED + 6)  # leaves rng's sequence as it was
     sweep = [
         check_sweep(rng, 8, 1024, class_aware=True, with_valid=False),
         check_sweep(rng, 8, 1024, class_aware=False, with_valid=True),
         check_sweep(rng, 8, 2048, class_aware=True, with_valid=False),
+        # the smallest K the serving path routes to the kernel; K not a
+        # multiple of 64; all padding; one class
+        check_sweep(edge, 8, 256, class_aware=True, with_valid=False),
+        check_sweep(edge, 8, 1000, class_aware=True, with_valid=True),
+        check_sweep(edge, 4, 700, class_aware=True, with_valid=True,
+                    case="all_invalid", timed=False),
+        check_sweep(edge, 4, 700, class_aware=True, with_valid=False,
+                    case="one_class", timed=False),
     ]
     # 3,069: FCOS at 384 px; 2,304 and 11,520: the two CenterNet decodes
     # there (2,304 at both buckets); 20,480: the scale-slot decode at 512 px
@@ -1449,13 +1551,28 @@ def main() -> None:
              check_dense(rng, 1, CN_CELLS, 100),
              check_dense(rng, 8, len(S8_SCALES) * CN_CELLS, 100),
              check_dense(rng, 8, len(S8_SCALES) * (S8_CANVAS // 8) ** 2,
-                         100)]
-    for name, rows in (("nms_sweep", sweep), ("dense_nms", dense)):
-        for r in rows:
-            # floor of a one-block-per-image design: the rounds of its
-            # longest image, each no more than an empty round
-            r["chain_ms"] = r["rounds_max"] * round_us * 1e-3
-            log(f"kernel {name} {json.dumps(r)}")
+                         100),
+             # fewer candidates than the cluster's blocks; one candidate;
+             # none above the threshold; one class; class-agnostic; no
+             # classes at all
+             check_dense(edge, 8, 5, 100, timed=False),
+             check_dense(edge, 8, 1, 100, timed=False),
+             check_dense(edge, 4, 3069, 100, case="below_threshold",
+                         timed=False),
+             check_dense(edge, 4, 3069, 100, case="one_class", timed=False),
+             check_dense(edge, 4, 3069, 100, class_aware=False, timed=False),
+             check_dense(edge, 4, 3069, 50, case="no_classes", timed=False)]
+    for r in sweep:
+        if "ms" in r:
+            r["chain_ms"] = r["shape"]["K"] * step_ns * 1e-6
+        log(f"kernel nms_sweep {json.dumps(r)}")
+    for r in dense:
+        if "ms" in r:
+            plan = r["plan"]
+            r["empty_round_us"] = cluster_round_us(plan["cluster"],
+                                                   plan["threads"])
+            r["chain_ms"] = r["rounds_max"] * r["empty_round_us"] * 1e-3
+        log(f"kernel dense_nms {json.dumps(r)}")
     focal = check_focal_all(rng)
     for r in focal:
         log(f"kernel focal {json.dumps(r)}")

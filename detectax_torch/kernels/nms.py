@@ -1,26 +1,29 @@
 """The two NMS kernels of the serving path: wrappers and plain versions.
 
-* `nms_sweep` — greedy suppression sweep over K score-sorted boxes.
-  Replaces the TPU kernel
-  ``detectax/ops/pallas/nms_kernel.py::suppression_mask_pallas``
-  (`_nms_kernel`). CUDA source: ``csrc/nms_sweep.cu``.
+* `nms_sweep` — greedy suppression over K score-sorted boxes. Replaces the
+  TPU kernel ``detectax/ops/pallas/nms_kernel.py::suppression_mask_pallas``
+  (`_nms_kernel`). CUDA source: ``csrc/nms_sweep.cu``: a bitmask of the
+  pairwise suppressions built by tiles over the whole card, then a sweep
+  over it, one warp an image, whose chain is K steps in registers.
 * `dense_nms` — fused selection + suppression over the full dense set.
   Replaces ``detectax/ops/pallas/nms_kernel.py::dense_nms_pallas``
-  (`_dense_nms_kernel`). CUDA source: ``csrc/dense_nms.cu``.
+  (`_dense_nms_kernel`). CUDA source: ``csrc/dense_nms.cu``: one
+  thread-block cluster an image, its candidates split over the cluster's
+  blocks and held on chip; a round pushes every warp's best to every
+  block through distributed shared memory, with no cluster barrier.
 
-Both are bound by their chain of dependent rounds (one per surviving box),
-not by the card's byte or arithmetic rates: an image's candidates are tens
-of KB, and each image is one thread block on one SM. A round is that
-block's pass over its candidates plus one barrier; on an H100 the pass, not
-the barrier, sets a round's time (`PERF.md`, `kernels/probe.py`).
-Images run in parallel, so a batch costs about what its longest image
-costs; the sources say what each design does to keep a round at one pass
-and one barrier.
+Both are bound by a chain of dependent steps, not by the card's byte or
+arithmetic rates: an image's candidates are tens of KB. The sources say
+what each design does to shorten the chain; `PERF.md` and
+``kernels/probe.py`` give the cost of an empty step.
 
 Beside each wrapper stands its plain PyTorch version (`nms_sweep_plain`,
 `dense_nms_plain`), the same arithmetic in the same order, vectorised over
-the batch. A wrapper takes the plain version only for a tensor on the CPU;
-for a CUDA tensor it launches the kernel or raises.
+the batch; `suppression_bits_plain` and `sweep_bits_plain` are the plain
+model of the sweep's two launches. A wrapper takes the plain version only
+for a tensor on the CPU; for a CUDA tensor it launches the kernel or
+raises. `_sweep_plan` and `_dense_plan` are the launch shapes, pure
+functions of K and M.
 
 Every function takes a leading batch dimension; an unbatched input
 (``[K, 4]``) is accepted and returned unbatched.
@@ -37,8 +40,24 @@ from detectax_torch.kernels import _common
 _BIG = 1e9
 # a block may use 227 KB of shared memory on Hopper
 _MAX_SMEM = 232448
-_SWEEP_BYTES_PER_BOX = 25  # float4 box + area + class + keep byte
-_DENSE_STATIC_SMEM = 512   # the argmax stage's slots
+
+# the sweep: 64 x 64 tiles of the bitmask, one 64-row tile a ring stage
+_TILE = 64
+_SWEEP_MAX_STAGES = 4
+_SWEEP_MAX_SLOTS = 8     # removed words a lane holds in registers
+_MBAR_BYTES = 8
+
+# dense NMS: a cluster of blocks an image, candidates held in registers
+_DENSE_MAX_CLUSTER = 16  # above 8 the card needs the non-portable size
+_DENSE_MAX_THREADS = 512
+_DENSE_PER = (1, 2, 4, 8)  # candidates a thread holds
+# (largest M, blocks a cluster), in order
+_DENSE_CLUSTERS = ((12288, 8), (_DENSE_MAX_CLUSTER * _DENSE_MAX_THREADS
+                                * _DENSE_PER[-1], _DENSE_MAX_CLUSTER))
+# a 32-byte slot per (block, warp) of the cluster for both round
+# parities, and their two mbarriers
+_DENSE_STATIC_SMEM = (2 * _DENSE_MAX_CLUSTER * (_DENSE_MAX_THREADS // 32)
+                      * 32 + 2 * _MBAR_BYTES)
 
 
 @functools.cache
@@ -46,16 +65,61 @@ def load_kernels() -> ctypes.CDLL:
     """The built library with this module's argument types declared."""
     lib = _common.load_library()
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.detectax_nms_sweep.argtypes = [p, p, p, p, i, i, f, i, p]
+    lib.detectax_nms_mask.argtypes = [p, p, p, i, i, f, p]
+    lib.detectax_nms_mask.restype = i
+    lib.detectax_nms_sweep.argtypes = [p, p, p, p, p, i, i, f, i, p]
     lib.detectax_nms_sweep.restype = i
     lib.detectax_dense_nms.argtypes = [p, p, p, p, p, p, p,
-                                       i, i, i, f, f, i, i, p]
+                                       i, i, i, f, f, i, i, i, i, p]
     lib.detectax_dense_nms.restype = i
     return lib
 
 
-def _block_threads(n: int) -> int:
-    return min(1024, max(32, _common.round_up(n, 32)))
+def _words(k: int) -> int:
+    return -(-k // _TILE)
+
+
+def _sweep_plan(k: int) -> dict:
+    """Launch shape of `nms_sweep` for K boxes an image: the mask's grid
+    (``tiles`` of 64 x 64 an image, 128 threads each), the sweep's warp and
+    the ring of ``stages`` row tiles of ``tile_bytes`` in shared memory.
+    Raises where two stages no longer fit a block (K > 14,464)."""
+    words = _words(k)
+    tile_bytes = _TILE * words * 8
+    stages = min(words, _SWEEP_MAX_STAGES,
+                 _MAX_SMEM // (tile_bytes + _MBAR_BYTES))
+    slots = -(-words // 32)
+    if k < 1 or stages < min(words, 2) or slots > _SWEEP_MAX_SLOTS:
+        raise ValueError(
+            f"nms_sweep streams 64-row tiles of the [K, ceil(K/64)] mask "
+            f"through a ring of at least two stages in one block's shared "
+            f"memory ({_MAX_SMEM} bytes): K={k} is outside 1..14464")
+    return {
+        "words": words, "slots": slots,
+        "tiles": words * (words + 1) // 2, "mask_threads": 2 * _TILE,
+        "sweep_threads": 32, "stages": stages, "tile_bytes": tile_bytes,
+        "smem_bytes": stages * (tile_bytes + _MBAR_BYTES),
+        "mask_bytes": _TILE * words * words * 8,  # an image's scratch
+    }
+
+
+def _dense_plan(m: int) -> dict:
+    """Launch shape of `dense_nms` for M candidates an image: ``cluster``
+    blocks of ``threads`` threads, each thread holding ``per`` candidates
+    of its block's contiguous ``slice``. Raises above 65,536."""
+    cluster = next((c for top, c in _DENSE_CLUSTERS if m <= top), None)
+    if m < 1 or cluster is None:
+        raise ValueError(
+            f"dense_nms holds an image's candidates in the registers of one "
+            f"cluster of at most {_DENSE_MAX_CLUSTER} blocks: M={m} is "
+            f"outside 1..{_DENSE_CLUSTERS[-1][0]}")
+    slice_ = -(-m // cluster)
+    for per in _DENSE_PER:
+        threads = max(32, _common.round_up(-(-slice_ // per), 32))
+        if threads <= _DENSE_MAX_THREADS:
+            break
+    return {"cluster": cluster, "slice": slice_, "per": per,
+            "threads": threads, "smem_bytes": _DENSE_STATIC_SMEM}
 
 
 def _same_device(ref: torch.Tensor, **tensors) -> None:
@@ -121,6 +185,99 @@ def nms_sweep_plain(
     return keep[0] if squeeze else keep
 
 
+def suppression_bits_plain(
+    boxes: torch.Tensor,
+    iou_thresh: float,
+    classes: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Plain model of `nms_sweep`'s first launch: the suppression bitmask,
+    int64 ``[B, K, W]`` (W = ceil(K / 64), words as bit patterns). Bit b of
+    word w in row i is set iff j = 64 w + b > i, the classes match (when
+    given) and IoU(i, j) > thresh, the IoU computed in `nms_sweep_plain`'s
+    order. Forms the [B, K, K] matrix: for tests and checks only."""
+    squeeze, (b, c) = _batched(boxes, classes)
+    b = b.to(torch.float32)
+    batch, k = b.shape[:2]
+    words = _words(k)
+    y1, x1, y2, x2 = (t.unsqueeze(1) for t in b.unbind(-1))  # j on the last
+    area = (y2 - y1) * (x2 - x1)
+    col = lambda t: t.transpose(1, 2)                        # i on the middle
+    ih = torch.clamp_min(
+        torch.minimum(y2, col(y2)) - torch.maximum(y1, col(y1)), 0.0)
+    iw = torch.clamp_min(
+        torch.minimum(x2, col(x2)) - torch.maximum(x1, col(x1)), 0.0)
+    inter = ih * iw
+    iou = inter / (area + col(area) - inter + 1e-8)
+    idx = torch.arange(k, device=b.device)
+    hit = (iou > iou_thresh) & (idx > idx[:, None])
+    if c is not None:
+        hit = hit & (c[:, None, :] == c[:, :, None])
+    padded = torch.zeros((batch, k, words * _TILE), dtype=torch.int64,
+                         device=b.device)
+    padded[..., :k] = hit.to(torch.int64)
+    shifts = torch.arange(_TILE, dtype=torch.int64, device=b.device)
+    # distinct bits: the sum is their OR, bit 63 included
+    bits = (padded.view(batch, k, words, _TILE) << shifts).sum(-1)
+    return bits[0] if squeeze else bits
+
+
+def sweep_bits_plain(
+    bits: torch.Tensor, valid: torch.Tensor | None = None
+) -> torch.Tensor:
+    """Plain model of `nms_sweep`'s second launch: walk the rows of the
+    bitmask of `suppression_bits_plain` in order; row i is kept iff it is
+    valid and its bit is clear in the removed set, which then takes its
+    row. Keep mask bool ``[B, K]``."""
+    squeeze = bits.ndim == 2
+    if squeeze:
+        bits = bits.unsqueeze(0)
+        valid = None if valid is None else valid.unsqueeze(0)
+    batch, k, words = bits.shape
+    keep = (torch.ones((batch, k), dtype=torch.bool, device=bits.device)
+            if valid is None else valid.to(torch.bool).clone())
+    removed = torch.zeros((batch, words), dtype=torch.int64,
+                          device=bits.device)
+    for i in range(k):
+        w, b = divmod(i, _TILE)
+        kept = keep[:, i] & (((removed[:, w] >> b) & 1) == 0)
+        keep[:, i] = kept
+        removed = torch.where(kept[:, None], removed | bits[:, i], removed)
+    return keep[0] if squeeze else keep
+
+
+def suppression_bits(
+    boxes: torch.Tensor,
+    iou_thresh: float,
+    classes: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The bitmask of `suppression_bits_plain` from `nms_sweep`'s mask
+    kernel alone (words below the diagonal tiles zero), so that it can be
+    held against the plain model word for word. On a CPU tensor it runs
+    `suppression_bits_plain`. Not on any serving path."""
+    if not boxes.is_cuda:
+        return suppression_bits_plain(boxes, iou_thresh, classes)
+    _same_device(boxes, classes=classes)
+    squeeze, (b, c) = _batched(boxes, classes)
+    batch, k = b.shape[:2]
+    plan = _sweep_plan(k)
+    words = plan["words"]
+    mask = torch.zeros((batch, _TILE * words, words), dtype=torch.int64,
+                       device=b.device)
+    b = b.to(torch.float32).contiguous()
+    c = None if c is None else c.to(torch.int32).contiguous()
+    if batch:
+        with torch.cuda.device(b.device):
+            code = load_kernels().detectax_nms_mask(
+                b.data_ptr(), None if c is None else c.data_ptr(),
+                mask.data_ptr(), batch, k, float(iou_thresh),
+                torch.cuda.current_stream().cuda_stream,
+            )
+        _common.check_launch(code, "nms_mask")
+        _common.count_launch("nms_mask")
+    bits = mask[:, :k]
+    return bits[0] if squeeze else bits
+
+
 def nms_sweep(
     boxes: torch.Tensor,
     iou_thresh: float,
@@ -128,24 +285,20 @@ def nms_sweep(
     classes: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Keep mask (bool ``[B, K]``) for score-descending corner boxes
-    ``[B, K, 4]``.
+    ``[B, K, 4]``, 1 <= K <= 14,464.
 
     ``classes`` (int ``[B, K]``): when given, suppression only acts between
     same-class candidates. ``valid`` (bool ``[B, K]``): padding that neither
-    survives nor suppresses. On a CUDA tensor this launches the CUDA
-    kernel; on a CPU tensor it runs `nms_sweep_plain`.
+    survives nor suppresses. On a CUDA tensor this launches the mask and
+    sweep kernels (one entry point, ``B * 64 W * W`` words of scratch); on
+    a CPU tensor it runs `nms_sweep_plain`.
     """
     if not boxes.is_cuda:
         return nms_sweep_plain(boxes, iou_thresh, valid, classes)
     _same_device(boxes, valid=valid, classes=classes)
     squeeze, (b, v, c) = _batched(boxes, valid, classes)
     batch, k = b.shape[:2]
-    if k * _SWEEP_BYTES_PER_BOX > _MAX_SMEM:
-        raise ValueError(
-            f"nms_sweep holds all K candidates in one block's shared "
-            f"memory: K={k} needs {k * _SWEEP_BYTES_PER_BOX} bytes, the "
-            f"limit is {_MAX_SMEM}"
-        )
+    plan = _sweep_plan(k) if k else None
     keep = torch.empty((batch, k), dtype=torch.bool, device=b.device)
     if batch == 0 or k == 0:
         return keep[0] if squeeze else keep
@@ -154,15 +307,17 @@ def nms_sweep(
     v = None if v is None else v.to(torch.bool).contiguous()
     if b.data_ptr() % 16:
         raise ValueError("boxes storage must be 16-byte aligned")
+    words = plan["words"]
+    mask = torch.empty((batch, _TILE * words, words), dtype=torch.int64,
+                       device=b.device)
     lib = load_kernels()
     with torch.cuda.device(b.device):
         code = lib.detectax_nms_sweep(
             b.data_ptr(),
             None if c is None else c.data_ptr(),
             None if v is None else v.data_ptr(),
-            keep.data_ptr(), batch, k, float(iou_thresh),
-            _block_threads(k),
-            torch.cuda.current_stream().cuda_stream,
+            mask.data_ptr(), keep.data_ptr(), batch, k, float(iou_thresh),
+            plan["stages"], torch.cuda.current_stream().cuda_stream,
         )
     _common.check_launch(code, "nms_sweep")
     _common.count_launch("nms_sweep")
@@ -260,7 +415,8 @@ def dense_nms(
     Returns the detection dict of `detectax_torch.ops.nms.nms`
     (boxes/scores/classes/valid ``[B, max_outputs]`` + num_valid),
     survivors in pick (score) order. On a CUDA tensor this launches the
-    CUDA kernel; on a CPU tensor it runs `dense_nms_plain`.
+    CUDA kernel, one cluster of blocks an image as `_dense_plan` sizes it
+    (M <= 65,536); on a CPU tensor it runs `dense_nms_plain`.
     """
     kw = dict(iou_thresh=iou_thresh, score_thresh=score_thresh,
               max_outputs=max_outputs, class_aware=class_aware)
@@ -269,12 +425,7 @@ def dense_nms(
     _same_device(boxes, scores=scores, classes=classes)
     squeeze, (b, s, c) = _batched(boxes, scores, classes)
     batch, m = s.shape
-    if m * 4 + _DENSE_STATIC_SMEM > _MAX_SMEM:
-        raise ValueError(
-            f"dense_nms holds the live scores of all M candidates in one "
-            f"block's shared memory: M={m} needs {m * 4} bytes, the limit "
-            f"is {_MAX_SMEM - _DENSE_STATIC_SMEM}"
-        )
+    plan = _dense_plan(m) if m else None
     dev = b.device
     if batch == 0 or max_outputs == 0 or m == 0:
         # nothing to launch: every output column is empty
@@ -303,7 +454,7 @@ def dense_nms(
             ob.data_ptr(), os_.data_ptr(), oc.data_ptr(), ov.data_ptr(),
             batch, m, int(max_outputs), float(iou_thresh),
             float(score_thresh), int(bool(class_aware)),
-            _block_threads(m),
+            plan["cluster"], plan["threads"], plan["per"],
             torch.cuda.current_stream().cuda_stream,
         )
     _common.check_launch(code, "dense_nms")
