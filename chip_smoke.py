@@ -8,7 +8,8 @@ order:
 1. device: name, ``nvidia-smi`` name and power limit, TF32 switches (off);
 2. builds the CUDA kernels from ``detectax_torch/kernels/csrc`` and loads
    them;
-3. times the empty steps of the NMS designs (``kernels/probe.py``: the
+3. times an empty kernel launch (the floor under every kernel's time) and
+   the empty steps of the NMS designs (``kernels/probe.py``: the
    block round, the cluster rounds at cluster sizes 1-16, the sweep's
    chain step), then holds each kernel against its plain PyTorch version
    on the card, at the shapes of the main paths: the two NMS kernels to an
@@ -20,13 +21,19 @@ order:
    kernel word for word against `suppression_bits_plain`; the focal-loss
    kernel (forward sum rtol 2e-4, dlogits atol 1e-5, two runs bitwise equal) at
    the five level shapes, with a weight mask, with logits of +-100, and
-   on a strided view; the peak-decode kernel in both modes
+   on a strided view, and its grouped call (`focal_loss_group`: one
+   forward and one backward launch) segment by segment on the five FCOS
+   levels read in place, ten segments (class + centerness), one segment,
+   a segment of one element, a segment of no rows, mixed weights and
+   extreme logits; the peak-decode kernel in both modes
    (`peak_mask_scores` to an exact match, NaN pattern included;
    `peak_scores` to 1e-6, a differing keep/zero decision allowed only
    within 2 ulp of the neighbourhood maximum) on plateaus, all-zero
    planes, values below the -1 border fill, NaN and +-inf, 1 x N maps, a
-   strided view and the folded [H, W, P] layout; times kernels and plain
-   versions with CUDA events;
+   strided view, the folded [H, W, P] layout and the band edges of its
+   plan (a last band shorter than the others, a band clamped to the map,
+   column tiles, channel tiles); times kernels and plain versions with
+   CUDA events;
 4. drives the serving path at full width: FCOS, ResNet-50 + FPN, 20
    classes, 384 px, fp32, seeded weights, through `Predictor` with buckets
    (1, 8) — once with the default NMS (fused dense kernel) and once with
@@ -145,12 +152,20 @@ BOUND_NOTE = (
     "exchange_round) at the cluster size and threads the launch used "
     "(us_per_round beside it is the kernel's own). NMS ms is device time "
     "of calls queued behind a blocker, call_ms what a caller on this host "
-    "sees. focal: launches counts the forward launches of the training "
-    "run (launches_bwd the backward ones); ms, plain_ms and library_ms "
-    "are device times of the forward queued behind a blocker, the "
-    "call_ms keys what a caller on this host sees; an element is charged "
+    "sees. launch_floor_ms is the device time of an empty kernel launch "
+    "queued behind a blocker, the floor under every ms. focal: launches "
+    "counts the forward launches of the training runs (launches_bwd the "
+    "backward ones; FCOS groups its five levels into one launch each "
+    "way); ms, plain_ms and library_ms are device times of the forward "
+    "queued behind a blocker, the call_ms keys what a caller on this host "
+    "sees; all_levels_* are one focal_loss_group call over the five FCOS "
+    "levels' class channels read in place (its bound over their 982,080 "
+    "elements), five_calls_* the five single calls of the per-level rows; "
+    "sum_ms is torch's own sum of the same logits (a reduction over the "
+    "same elements with no focal arithmetic); an element is charged "
     "24 operations forward and 30 backward, each transcendental call and "
-    "division counted as one. peak: ms, plain_ms and library_ms are device "
+    "division counted as one. peak: copy_ms is torch's clone of the map "
+    "(the same bytes in and out, no work); ms, plain_ms and library_ms are device "
     "times queued behind a blocker, call_ms what a caller on this host "
     "sees; library_ms is torch.where(p >= max_pool2d(p, 3, 1, 1), p, 0) "
     "on an NCHW copy made outside the timing - two calls, and it pads "
@@ -530,6 +545,10 @@ def check_focal(rng, hw, *, case="dense", classes=NUM_CLASSES, slots=None,
             lambda: KF.focal_grad_plain(z, x, weights=w), 20)
         library_ms = (None if w is not None else
                       queued_ms(lambda: library_focal(z, x), reps=20))
+        # torch's own sum of the logits: a reduction over the same
+        # elements that does no focal arithmetic
+        sum_ms = (queued_ms(lambda: x.sum(), reps=50) if case == "dense"
+                  else None)
     fwd_bwd_ms, fwd_bwd_call_ms = both(fwd_bwd(KF.focal_loss), 50)
     plain_fwd_bwd_ms, plain_fwd_bwd_call_ms = both(
         fwd_bwd(KF.focal_loss_plain), 20)
@@ -547,7 +566,7 @@ def check_focal(rng, hw, *, case="dense", classes=NUM_CLASSES, slots=None,
                                  else classes)},
         "max_abs_err": max(grad_err, closed_err), "sum_rel_err": sum_rel,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": library_ms,
+        "bound_by": bound_by, "library_ms": library_ms, "sum_ms": sum_ms,
         "bwd_ms": fwd_bwd_ms - ms, "fwd_bwd_ms": fwd_bwd_ms,
         "plain_bwd_ms": plain_bwd_ms, "plain_fwd_bwd_ms": plain_fwd_bwd_ms,
         "bwd_bound_ms": bwd_bound_ms,
@@ -569,6 +588,150 @@ def check_focal_all(rng):
              check_focal(rng, S8_CANVAS // 8, case="strided",
                          classes=NUM_CLASSES, slots=len(S8_SCALES), lead=4)]
     return rows
+
+
+FOCAL_GROUP_CASES = ("levels", "levels_and_centerness", "one_segment",
+                     "one_element", "zero_rows", "mixed_weights", "extreme")
+
+
+def focal_group_segments(rng, case):
+    """Segments of one `focal_loss_group` call, as the training path hands
+    them over where it can: "levels" the class channels ``y[..., 5:]`` of
+    the five FCOS level maps ``[16, h, h, 25]`` (strided views), read in
+    place; "levels_and_centerness" those and the five centerness maps
+    ``y[..., 4]`` (ten segments, as under cen_type="focal"); "one_segment"
+    one contiguous ``[16, 48, 48, 20]``; "one_element" a level and a
+    segment of one element; "zero_rows" a segment of no rows between two
+    levels; "mixed_weights" the five levels, every other one with a 0/1
+    mask; "extreme" the five levels with logits in {-100, -40, 0, 40,
+    100}. Returns the segments as (labels, logits, weights or None) and
+    the logits that take a gradient (leaf tensors, strided where the
+    segment is)."""
+    def level(hw, extreme=False):
+        shape = (FOCAL_BATCH, hw, hw, 5 + NUM_CLASSES)
+        labels = (rng.uniform(size=shape) < 0.01).astype(np.float32)
+        if extreme:
+            logits = rng.choice(
+                np.array([-100, -40, 0, 40, 100], np.float32), size=shape)
+        else:
+            logits = (4.0 * rng.standard_normal(size=shape)).astype(np.float32)
+        return cuda(labels), cuda(logits)
+
+    if case == "one_segment":
+        shape = (FOCAL_BATCH, 48, 48, NUM_CLASSES)
+        pairs = [(cuda((rng.uniform(size=shape) < 0.01).astype(np.float32)),
+                  cuda((4.0 * rng.standard_normal(size=shape))
+                       .astype(np.float32)))]
+        weights = [None]
+    else:
+        maps = [level(hw, extreme=case == "extreme") for hw in FOCAL_LEVELS]
+        pairs = [(z[..., 5:], x[..., 5:]) for z, x in maps]
+        if case == "levels_and_centerness":
+            pairs += [(z[..., 4], x[..., 4]) for z, x in maps]
+        elif case == "one_element":
+            pairs = [pairs[-1], (cuda(np.ones((1,), np.float32)),
+                                 cuda(np.full((1,), -1.5, np.float32)))]
+        elif case == "zero_rows":
+            empty = torch.zeros((0, NUM_CLASSES), device=DEV)
+            pairs = [pairs[-2], (empty, empty.clone()), pairs[-1]]
+        weights = [None] * len(pairs)
+        if case == "mixed_weights":
+            weights = [cuda((rng.uniform(size=x.shape[:-1] + (1,)) < 0.7)
+                            .astype(np.float32)) if i % 2 == 0 else None
+                       for i, (_, x) in enumerate(pairs)]
+    xs = [x.detach().requires_grad_(True) for _, x in pairs]
+    segs = [(z, x, w) for (z, _), x, w in zip(pairs, xs, weights)]
+    return segs, xs
+
+
+def check_focal_group(rng, case, *, timed=False):
+    """`focal_loss_group` against its plain version segment by segment:
+    each sum to FOCAL_SUM_RTOL, each segment's dlogits (the upstream
+    gradient differing by segment) to FOCAL_GRAD_ATOL, one forward and one
+    backward launch, two runs bitwise equal. Timed: the grouped call, and
+    five single `focal_loss` calls on the same segments, queued behind a
+    blocker."""
+    segs, xs = focal_group_segments(rng, case)
+    name = f"focal_loss_group {case} ({len(segs)} segments)"
+    upstream = torch.linspace(0.5, 2.0, len(segs), device=DEV)
+
+    def run(group):
+        out = group(segs)
+        grads = torch.autograd.grad(out, xs, upstream, allow_unused=True)
+        return out.detach(), grads
+
+    before = kcommon.launch_counts()
+    got, got_grads = run(KF.focal_loss_group)
+    after = kcommon.launch_counts()
+    again, again_grads = run(KF.focal_loss_group)
+    torch.cuda.synchronize()
+    for key in ("focal_fwd", "focal_bwd"):
+        check(after.get(key, 0) - before.get(key, 0) == 1,
+              f"{name}: {after.get(key, 0) - before.get(key, 0)} {key} "
+              f"launches for one call, expected 1")
+    want, want_grads = run(KF.focal_loss_group_plain)
+    check(got.shape == (len(segs),) and bool(torch.isfinite(got).all()),
+          f"{name}: sums {got}")
+    check(torch.equal(got, again)
+          and all(torch.equal(a, b) for a, b in zip(got_grads, again_grads)),
+          f"{name}: two runs on the same input differ in their bits")
+    sum_rel, grad_err = 0.0, 0.0
+    for i, (g, w, gg, wg) in enumerate(zip(got, want, got_grads, want_grads)):
+        rel = float((g - w).abs() / w.abs().clamp_min(1e-30))
+        check(rel <= FOCAL_SUM_RTOL or float((g - w).abs()) == 0.0,
+              f"{name}: segment {i} sum {float(g)} vs plain {float(w)} "
+              f"(rel {rel}, tolerance {FOCAL_SUM_RTOL})")
+        err = float((gg - wg).abs().max()) if gg.numel() else 0.0
+        check(gg.shape == xs[i].shape and err <= FOCAL_GRAD_ATOL,
+              f"{name}: segment {i} dlogits differ by {err} "
+              f"(tolerance {FOCAL_GRAD_ATOL})")
+        sum_rel, grad_err = max(sum_rel, rel), max(grad_err, err)
+    if case == "zero_rows":
+        check(float(got[1]) == 0.0, f"{name}: the empty segment sums to "
+                                    f"{float(got[1])}")
+    row = {"case": case, "segments": len(segs),
+           "elements": sum(x.numel() for x in xs),
+           "sum_rel_err": sum_rel, "max_abs_err": grad_err}
+    if not timed:
+        return row
+
+    ones = torch.ones(len(segs), device=DEV)
+    one = torch.ones((), device=DEV)
+
+    def grouped_fwd_bwd():
+        torch.autograd.grad(KF.focal_loss_group(segs), xs, ones)
+
+    def single_fwd():
+        for z, x, w in segs:
+            KF.focal_loss(z, x, weights=w)
+
+    def single_fwd_bwd():
+        outs = [KF.focal_loss(z, x, weights=w) for z, x, w in segs]
+        torch.autograd.grad(outs, xs, [one] * len(outs))
+
+    with torch.no_grad():
+        row["ms"] = queued_ms(lambda: KF.focal_loss_group(segs), reps=50)
+        row["call_ms"] = time_ms(lambda: KF.focal_loss_group(segs),
+                                 warmup=2, reps=50)
+        row["single_calls_fwd_ms"] = queued_ms(single_fwd, reps=50)
+    row["fwd_bwd_ms"] = queued_ms(grouped_fwd_bwd, reps=50)
+    row["fwd_bwd_call_ms"] = time_ms(grouped_fwd_bwd, warmup=2, reps=50)
+    row["single_calls_fwd_bwd_ms"] = queued_ms(single_fwd_bwd, reps=50)
+    n = row["elements"]
+    row["bound_ms"], row["bound_by"] = bound(n * 8 + 4 * len(segs),
+                                             n * FOCAL_FWD_FLOPS)
+    row["fwd_bwd_bound_ms"], _ = bound(
+        n * 8 + 4 * len(segs) + n * 12 + 4 * len(segs),
+        n * (FOCAL_FWD_FLOPS + FOCAL_BWD_FLOPS))
+    row["grid_blocks"] = sum(b for _, b, _ in KF._focal_plan(
+        [(int(np.prod(x.shape[:-1])), x.shape[-1]) for x in xs]))
+    return row
+
+
+def check_focal_groups(rng):
+    """First row: the five FCOS levels, timed; then every other case."""
+    return [check_focal_group(rng, case, timed=case == "levels")
+            for case in FOCAL_GROUP_CASES]
 
 
 def library_peak(p_nchw):
@@ -643,9 +806,11 @@ def check_peak(rng, shape, *, sigmoid=False, case="uniform", timed=False):
               f"{name}: an all-zero plane is not flat after the kernel")
     elif case in ("uniform", "strided") and min(shape[-3:-1]) >= 3:
         check(0.0 < kept < 0.5, f"{name}: degenerate test input ({kept})")
+    dims = (1,) * (4 - len(shape)) + tuple(shape)
     row = {"shape": {"dims": list(shape), "sigmoid": sigmoid, "case": case},
            "max_abs_err": err, "decisions_differing": n_flipped,
-           "kept_share": kept}
+           "kept_share": kept,
+           "plan": KP._peak_plan(dims[1], dims[2], dims[3], dims[0])}
     if not timed:
         return row
 
@@ -659,17 +824,26 @@ def check_peak(rng, shape, *, sigmoid=False, case="uniform", timed=False):
         plain_ms = queued_ms(lambda: plain(t), reps=20)
         plain_call_ms = time_ms(lambda: plain(t), warmup=2, reps=20)
         library_ms = queued_ms(lambda: library_peak(nchw), reps=20)
+        # torch's copy of the map: the same bytes in and out, no work
+        copy_ms = queued_ms(lambda: t.clone(), reps=50)
     bound_ms, bound_by = bound(
         n * 8, n * (PEAK_SIGMOID_FLOPS if sigmoid else PEAK_FLOPS))
     row.update({"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": library_ms,
-                "call_ms": call_ms, "plain_call_ms": plain_call_ms})
+                "copy_ms": copy_ms, "call_ms": call_ms,
+                "plain_call_ms": plain_call_ms})
     return row
 
 
 PEAK_MAIN = (8, 48, 48, 20)   # the heatmap decode's scores at 384 px, batch 8
 PEAK_EDGE_SHAPES = ((3, 3, 2), (1, 7, 3), (7, 1, 3), (48, 48, 160),
                     (2, 64, 64, 7), (80, 80, 33), (1, 1, 1))
+# the band edges of `_peak_plan`: h not a multiple of the band (3 rows),
+# a band taller than the map (clamped to its 2 rows), one row of one
+# image, a row too wide for one block (two column tiles), a cell too wide
+# for one block (four channel tiles)
+PEAK_BAND_SHAPES = ((8, 50, 10, 4), (512, 2, 8, 4), (1, 1, 37, 20),
+                    (2, 5, 300, 20), (2, 3, 5000))
 PEAK_CASES = ("uniform", "plateaus", "zeros", "below_border", "nonfinite")
 
 
@@ -684,7 +858,7 @@ def check_peak_all(rng):
             check_peak(rng, (1,) + PEAK_MAIN[1:]),   # the batch-1 bucket
             check_peak(rng, PEAK_MAIN, case="strided"),
             check_peak(rng, PEAK_MAIN, sigmoid=True, case="strided")]
-    for shape in (PEAK_MAIN,) + PEAK_EDGE_SHAPES:
+    for shape in (PEAK_MAIN,) + PEAK_EDGE_SHAPES + PEAK_BAND_SHAPES:
         for case in PEAK_CASES:
             for sigmoid in (False, True):
                 if shape == PEAK_MAIN and case == "uniform":
@@ -981,13 +1155,11 @@ def train_path():
     for i, m in enumerate(metrics):
         check(all(np.isfinite(v) for v in m.values()),
               f"training step {i + 1}: non-finite metric {m}")
-    levels = len(FOCAL_LEVELS)
-    check(counts.get("focal_fwd", 0) == levels * TRAIN_STEPS,
-          f"training launched focal_fwd {counts.get('focal_fwd', 0)} times, "
-          f"expected {levels} a step = {levels * TRAIN_STEPS}")
-    check(counts.get("focal_bwd", 0) == levels * TRAIN_STEPS,
-          f"training launched focal_bwd {counts.get('focal_bwd', 0)} times, "
-          f"expected {levels} a step = {levels * TRAIN_STEPS}")
+    # the five levels' class terms go through one grouped call a step
+    for key in ("focal_fwd", "focal_bwd"):
+        check(counts.get(key, 0) == TRAIN_STEPS,
+              f"training launched {key} {counts.get(key, 0)} times, "
+              f"expected one a step = {TRAIN_STEPS}")
     moved = float((stem_bn.running_mean - mean0).abs().max())
     check(moved > 0, "BatchNorm running statistics did not move")
 
@@ -1087,9 +1259,9 @@ def cli_path():
         check(summary["final_step"] == 4, f"CLI trained {summary}")
         check(np.isfinite(summary["total"]) and np.isfinite(
             summary["grad_norm"]), f"CLI metrics not finite: {summary}")
-        check(counts.get("focal_fwd", 0) == 20
-              and counts.get("focal_bwd", 0) == 20,
-              f"CLI training launched {counts}, expected 20 and 20")
+        check(counts.get("focal_fwd", 0) == 4
+              and counts.get("focal_bwd", 0) == 4,
+              f"CLI training launched {counts}, expected 4 and 4")
         nc = 3  # the synthetic dataset's classes
         model = FCOS(num_classes=nc, backbone=BACKBONE).to(DEV)
         fresh = model.cls_head_1.Conv_0.weight.clone()
@@ -1522,6 +1694,8 @@ def main() -> None:
         f"{round_us:.4f} us")
     step_ns = chain_step_ns()
     log(f"empty sweep chain step (one warp, 8 images): {step_ns:.4f} ns")
+    launch_floor = queued_ms(lambda: KB.empty_launch(DEV), reps=200)
+    log(f"empty kernel launch, queued: {launch_floor:.5f} ms")
     cluster_probe = {
         mode: {str(c): cluster_round_us(c, 384, mode)
                for c in (1, 2, 4, 8, 16)}
@@ -1576,6 +1750,9 @@ def main() -> None:
     focal = check_focal_all(rng)
     for r in focal:
         log(f"kernel focal {json.dumps(r)}")
+    groups = check_focal_groups(np.random.default_rng(SEED + 7))
+    for r in groups:
+        log(f"kernel focal_loss_group {json.dumps(r)}")
     peak = check_peak_all(rng)
     for r in peak[:6]:
         log(f"kernel peak {json.dumps(r)}")
@@ -1629,11 +1806,17 @@ def main() -> None:
     focal[0]["launches_bwd"] = (train_counts["focal_bwd"]
                                 + cn_train_counts["focal_bwd"]
                                 + s8_train_counts["focal_bwd"])
-    levels = focal[:len(FOCAL_LEVELS)]
-    focal[0]["all_levels_fwd_ms"] = sum(r["ms"] for r in levels)
-    focal[0]["all_levels_fwd_bwd_ms"] = sum(r["fwd_bwd_ms"] for r in levels)
-    focal[0]["all_levels_fwd_bwd_call_ms"] = sum(
-        r["fwd_bwd_call_ms"] for r in levels)
+    # the five levels: one grouped call (what training runs), and beside it
+    # the five single calls of the per-level rows
+    levels, grouped = focal[:len(FOCAL_LEVELS)], groups[0]
+    focal[0]["all_levels_fwd_ms"] = grouped["ms"]
+    focal[0]["all_levels_fwd_bwd_ms"] = grouped["fwd_bwd_ms"]
+    focal[0]["all_levels_fwd_bwd_call_ms"] = grouped["fwd_bwd_call_ms"]
+    focal[0]["all_levels_bound_ms"] = grouped["bound_ms"]
+    focal[0]["all_levels_fwd_bwd_bound_ms"] = grouped["fwd_bwd_bound_ms"]
+    focal[0]["five_calls_fwd_ms"] = sum(r["ms"] for r in levels)
+    focal[0]["five_calls_fwd_bwd_ms"] = sum(r["fwd_bwd_ms"] for r in levels)
+    focal[0]["focal_loss_group"] = groups
 
     meta = {
         "nms_sweep": ("detectax_torch/kernels/csrc/nms_sweep.cu",
@@ -1654,7 +1837,8 @@ def main() -> None:
             **rows[0], "other_shapes": rows[1:],
         })
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
-    log(json.dumps({"kernels": kernels, "bound_note": BOUND_NOTE}))
+    log(json.dumps({"kernels": kernels, "launch_floor_ms": launch_floor,
+                    "bound_note": BOUND_NOTE}))
     log(card)  # name, power.limit as nvidia-smi gives them
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -38,11 +38,13 @@ _lib: ctypes.CDLL | None = None
 _build_seconds: float | None = None
 
 
+# Streaming multiprocessors of an H100 SXM: the launch plans size their
+# grids to it (a constant, so that a sum's order does not depend on the card)
+SMS = 132
+
+
 def round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
-
-
-MAX_OFFSET = 2 ** 31 - 1  # the elementwise kernels index with 32 bits
 
 
 def as_rows(t: torch.Tensor) -> tuple[torch.Tensor, int, int, int]:

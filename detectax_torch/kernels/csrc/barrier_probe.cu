@@ -18,6 +18,8 @@
 //   chain_probe_kernel: the chain of the sweep in nms_sweep.cu, one warp:
 //     step b tests bit b of the removed word and, when clear, ORs in a
 //     word read from shared memory.
+//   empty_kernel: one warp that does nothing; queued back to back, its
+//     launches give the floor under every kernel's time (launch_floor_ms).
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -152,6 +154,8 @@ __global__ void chain_probe_kernel(int steps, unsigned long long* __restrict__ o
     out[blockIdx.x * 32 + lane] = cur ^ kept;
 }
 
+__global__ void empty_kernel() {}
+
 }  // namespace
 
 // `out` holds blocks * threads ints. Launches on `stream`; returns the
@@ -199,5 +203,12 @@ extern "C" int detectax_chain_probe(int steps, int blocks, void* out, void* stre
 {
     chain_probe_kernel<<<blocks, 32, 0, static_cast<cudaStream_t>(stream)>>>(
         steps, static_cast<unsigned long long*>(out));
+    return static_cast<int>(cudaGetLastError());
+}
+
+// One launch of a kernel that does nothing. Returns the cudaError_t.
+extern "C" int detectax_empty_launch(void* stream)
+{
+    empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
     return static_cast<int>(cudaGetLastError());
 }

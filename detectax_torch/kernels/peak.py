@@ -6,8 +6,11 @@ score where it is >= each of its 8 neighbours in its own class plane and
 write 0 elsewhere — the maxpool-equals test that stands in for NMS on a
 centre heatmap. They replace the TPU kernel
 ``detectax/ops/pallas/peak_decode.py::_peak_call`` (`peak_scores_pallas`,
-`peak_mask_scores_pallas`). CUDA source: ``csrc/peak.cu`` (one thread an
-element, one launch for all planes of the batch).
+`peak_mask_scores_pallas`). CUDA source: ``csrc/peak.cu`` (one block a
+band of rows of an image, staged once into shared memory with its halo;
+one launch for all planes of the batch). The bands, and the column and
+channel tiles where a row does not fit, are `_peak_plan`, a pure function
+of the shape.
 
 Layout: the map is taken as the decode has it, ``[B, h, w, C]``
 channel-last, or as ``[H, W, P]`` — the layout the TPU kernel takes, P
@@ -27,7 +30,9 @@ numbers. There is no gradient: this is decode only.
 
 Beside the wrappers stand the plain versions `peak_scores_plain` and
 `peak_mask_scores_plain`: pad with -1, maximum of the eight shifted
-slices, select. A wrapper takes its plain version only for a tensor on the
+slices, select. `peak_bands_plain` is the plain model of the kernel's
+decomposition (one staged band, tile and halo at a time, as `_peak_plan`
+cuts them). A wrapper takes its plain version only for a tensor on the
 CPU; for a CUDA tensor it launches the kernel or raises.
 """
 from __future__ import annotations
@@ -40,16 +45,44 @@ import torch.nn.functional as F
 
 from detectax_torch.kernels import _common
 
+STAGE_BYTES = 48 * 1024    # a block's staging (csrc/peak.cu kMaxSmemBytes)
+
 
 @functools.cache
 def load_kernels() -> ctypes.CDLL:
     """The built library with this module's argument types declared."""
     lib = _common.load_library()
     p, i64 = ctypes.c_void_p, ctypes.c_int64
-    lib.detectax_peak.argtypes = [p, i64, i64, i64, i64, i64, ctypes.c_int,
-                                  p, p]
+    lib.detectax_peak.argtypes = [p, i64, i64, i64, i64, i64, i64, i64, i64,
+                                  ctypes.c_int, p, p]
     lib.detectax_peak.restype = ctypes.c_int
     return lib
+
+
+def _peak_plan(h: int, w: int, c: int, batch: int = 1) -> dict:
+    """How the kernel cuts a ``[batch, h, w, c]`` map into blocks.
+
+    A block stages ``(rows + 2) x (col_tile + 2)`` cells of ``chan_tile``
+    floats (its band with a halo row and cell on every side) into at most
+    ``STAGE_BYTES`` of shared memory. A cell's channels are tiled only when
+    a 3 x 3 of cells would not fit, a row's cells only when three staged
+    rows would not; then the band is as tall as fits, but short enough for
+    ``_common.SMS`` blocks to be in flight where the map has the rows.
+    Covers every shape with at least one element."""
+    floats = STAGE_BYTES // 4
+    chan_tile = c if 9 * c <= floats else floats // 9 // 4 * 4
+    col_tile = (w if 3 * (w + 2) * chan_tile <= floats
+                else max(1, floats // (3 * chan_tile) - 2))
+    fit = max(1, floats // ((col_tile + 2) * chan_tile) - 2)
+    col_tiles = -(-w // col_tile)
+    chan_tiles = -(-c // chan_tile)
+    rows = max(1, min(h, fit,
+                      batch * h * col_tiles * chan_tiles // _common.SMS))
+    bands = -(-h // rows)
+    return {"rows": rows, "col_tile": col_tile, "chan_tile": chan_tile,
+            "bands": bands, "col_tiles": col_tiles, "chan_tiles": chan_tiles,
+            "blocks": batch * bands * col_tiles * chan_tiles,
+            "smem_bytes": (rows + 2) * (col_tile + 2) * chan_tile * 4}
 
 
 def _check_map(t: torch.Tensor) -> None:
@@ -93,22 +126,62 @@ def peak_mask_scores_plain(scores: torch.Tensor) -> torch.Tensor:
     return _mask_to_peaks(scores.to(torch.float32))
 
 
+def peak_bands_plain(t: torch.Tensor, apply_sigmoid: bool = False
+                     ) -> torch.Tensor:
+    """Plain model of the kernel's decomposition: for each block of
+    `_peak_plan`, stage its band, tile and halo (-1 outside the map, the
+    sigmoid applied once a staged element), keep each output where its 8
+    staged neighbours are all <= it. Equals `peak_mask_scores_plain` (and,
+    with the sigmoid, `peak_scores_plain`) exactly; it exists to show that
+    the cut covers the map once and that the halo is right."""
+    _check_map(t)
+    x = t.to(torch.float32)
+    x4 = x if x.ndim == 4 else x.unsqueeze(0)
+    batch, h, w, c = x4.shape
+    out = torch.zeros_like(x4)
+    if out.numel() == 0:
+        return out.reshape(x.shape)
+    plan = _peak_plan(h, w, c, batch)
+    r, tw, tc = plan["rows"], plan["col_tile"], plan["chan_tile"]
+    for y0 in range(0, h, r):
+        for x0 in range(0, w, tw):
+            for c0 in range(0, c, tc):
+                rows, cols, cw = min(r, h - y0), min(tw, w - x0), min(tc, c - c0)
+                staged = torch.full((batch, rows + 2, cols + 2, cw), -1.0)
+                ya, yb = max(y0 - 1, 0), min(y0 + rows + 1, h)
+                xa, xb = max(x0 - 1, 0), min(x0 + cols + 1, w)
+                part = x4[:, ya:yb, xa:xb, c0:c0 + cw]
+                if apply_sigmoid:
+                    part = 1.0 / (1.0 + torch.exp(-part))
+                staged[:, ya - y0 + 1:yb - y0 + 1,
+                       xa - x0 + 1:xb - x0 + 1] = part
+                p = staged[:, 1:rows + 1, 1:cols + 1]
+                keep = torch.ones_like(p, dtype=torch.bool)
+                for dy in (-1, 0, 1):
+                    for dx in (-1, 0, 1):
+                        if dy or dx:
+                            q = staged[:, 1 + dy:1 + dy + rows,
+                                       1 + dx:1 + dx + cols]
+                            keep &= q <= p
+                out[:, y0:y0 + rows, x0:x0 + cols, c0:c0 + cw] = torch.where(
+                    keep, p, torch.zeros((), dtype=p.dtype))
+    return out.reshape(x.shape)
+
+
 def _launch(t: torch.Tensor, apply_sigmoid: bool) -> torch.Tensor:
     _check_map(t)
     shape = tuple(t.shape)
     batch, (h, w, c) = (1 if t.ndim == 3 else shape[0]), shape[-3:]
-    x, cells, _, stride = _common.as_rows(t.detach().to(torch.float32))
+    x, _, _, stride = _common.as_rows(t.detach().to(torch.float32))
     out = torch.empty(shape, dtype=torch.float32, device=t.device)
     if out.numel() == 0:
         return out
-    if cells * max(stride, c) > _common.MAX_OFFSET:
-        raise ValueError(
-            f"the peak kernel indexes elements with 32 bits: {cells} cells "
-            f"at stride {max(stride, c)} do not fit")
+    plan = _peak_plan(h, w, c, batch)
     lib = load_kernels()
     with torch.cuda.device(t.device):
         code = lib.detectax_peak(
-            x.data_ptr(), stride, batch, h, w, c, int(apply_sigmoid),
+            x.data_ptr(), stride, batch, h, w, c, plan["rows"],
+            plan["col_tile"], plan["chan_tile"], int(apply_sigmoid),
             out.data_ptr(), torch.cuda.current_stream().cuda_stream)
     _common.check_launch(code, "peak")
     _common.count_launch("peak")

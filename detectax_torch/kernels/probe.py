@@ -1,4 +1,4 @@
-"""Measurement aids for the NMS kernels; the serving path never imports it.
+"""Measurement aids for the kernels; the serving path never imports it.
 
 ``csrc/barrier_probe.cu`` holds the empty skeletons of the NMS kernels'
 dependent steps; timing them gives what a step costs before any work is
@@ -12,7 +12,9 @@ beside the kernels' times):
   cluster barrier, read of every block's slot), 2 the round of
   ``csrc/dense_nms.cu`` (every warp's slot pushed to every block, one
   mbarrier wait a block);
-* `chain_probe`: the sweep's chain in ``csrc/nms_sweep.cu``, one warp.
+* `chain_probe`: the sweep's chain in ``csrc/nms_sweep.cu``, one warp;
+* `empty_launch`: a kernel that does nothing, the floor under every
+  kernel's time.
 
 None of them is counted as a kernel launch.
 """
@@ -36,6 +38,8 @@ def _lib() -> ctypes.CDLL:
     lib.detectax_cluster_probe.restype = i
     lib.detectax_chain_probe.argtypes = [i, i, p, p]
     lib.detectax_chain_probe.restype = i
+    lib.detectax_empty_launch.argtypes = [p]
+    lib.detectax_empty_launch.restype = i
     return lib
 
 
@@ -80,3 +84,10 @@ def chain_probe(steps: int, blocks: int, device: torch.device) -> torch.Tensor:
             _stream())
     _common.check_launch(code, "chain_probe")
     return out
+
+
+def empty_launch(device: torch.device) -> None:
+    """One launch of one warp that does nothing."""
+    with torch.cuda.device(device):
+        code = _lib().detectax_empty_launch(_stream())
+    _common.check_launch(code, "empty_launch")

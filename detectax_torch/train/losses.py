@@ -9,9 +9,13 @@ number of positive cells in the batch, which the dict carries — under
 ``loss_norm="pos"``.
 
 The classification term is the focal loss. On a CUDA tensor it is the
-hand-written kernel (`detectax_torch.kernels.focal.focal_loss`), with no
-switch to turn on; on a CPU tensor, or with ``kernels="plain"``, its plain
-version `detectax_torch.ops.losses.focal_loss`. The class channels
+hand-written kernel, with no switch to turn on: `fcos_loss` hands every
+level's class channels (and, under ``cen_type="focal"``, every level's
+centerness) to one call of `detectax_torch.kernels.focal.focal_loss_group`
+— one forward and one backward launch a step — and `centernet_s8_loss`
+calls `focal_loss`. On a CPU tensor, or with ``kernels="plain"``, they run
+the plain versions (`focal_loss_group_plain`, which is
+`detectax_torch.ops.losses.focal_loss` once a segment). The class channels
 ``y[..., 5:]`` are strided views of the level maps: the kernel's wrapper
 reads them in place by their row stride.
 """
@@ -21,16 +25,18 @@ from typing import Sequence
 
 import torch
 
-from detectax_torch.kernels.focal import focal_loss as focal_loss_kernel
+from detectax_torch.kernels import focal as focal_kernels
 from detectax_torch.ops.losses import focal_loss as focal_loss_plain
 from detectax_torch.ops.losses import iou_loss, smooth_l1_loss
 
 
-def _focal_fn(kernels):
+def _focal_fns(kernels):
+    """(one-segment focal, grouped focal) for ``kernels``: the wrappers
+    (plain on a CPU tensor, kernel on CUDA) or the plain versions."""
     if kernels is None:
-        return focal_loss_kernel   # plain on a CPU tensor, kernel on CUDA
+        return focal_kernels.focal_loss, focal_kernels.focal_loss_group
     if kernels == "plain":
-        return focal_loss_plain
+        return focal_loss_plain, focal_kernels.focal_loss_group_plain
     raise ValueError(f"kernels must be None or 'plain', got {kernels!r}")
 
 
@@ -48,16 +54,23 @@ def fcos_loss(
 
     ``kernels="plain"`` runs the focal term on its plain version whatever
     the device (the reference the kernel path is held against)."""
-    focal_loss = _focal_fn(kernels)
+    _, focal_group = _focal_fns(kernels)
+    levels = list(zip(y_true, y_pred))
+    # every focal term of the step in one call, added below in the order
+    # the loop of the JAX package adds them
+    segments = [(yt[..., 5:], yp[..., 5:]) for yt, yp in levels]
+    if cen_type != "l1":
+        segments += [(yt[..., 4], yp[..., 4]) for yt, yp in levels]
+    sums = focal_group(segments).unbind(0) if segments else ()
     cls_loss = 0.0
     reg_loss = 0.0
     cen_loss = 0.0
     num_pos = 0.0
-    for yt, yp in zip(y_true, y_pred):
+    for i, (yt, yp) in enumerate(levels):
         obj = yt[..., 5:].amax(dim=-1)
         mask = (obj >= 1.0).to(torch.float32)
         num_pos = num_pos + mask.sum()
-        cls_loss = cls_loss + focal_loss(yt[..., 5:], yp[..., 5:])
+        cls_loss = cls_loss + sums[i]
         if cen_type == "l1":
             # sigmoid(pred) against the target with an unmasked smooth-L1.
             # torch.sigmoid, NOT 1/(1+exp(-x)): the naive form's derivative
@@ -66,7 +79,7 @@ def fcos_loss(
             cen_loss = cen_loss + smooth_l1_loss(
                 yt[..., 4], torch.sigmoid(yp[..., 4]))
         else:
-            cen_loss = cen_loss + focal_loss(yt[..., 4], yp[..., 4])
+            cen_loss = cen_loss + sums[len(levels) + i]
         if reg_type == "iou":
             reg_loss = reg_loss + iou_loss(yt[..., :4], yp[..., :4], mask)
         else:
@@ -94,7 +107,7 @@ def centernet_s8_loss(
     (obj > 0) for one-hot targets, and keeps regression centroid-only
     under `gaussian_cls` soft targets (tails < 1.0). ``kernels`` as in
     `fcos_loss`."""
-    focal_loss = _focal_fn(kernels)
+    focal_loss, _ = _focal_fns(kernels)
     obj = y_true[..., 4:].amax(dim=-1)
     mask = (obj >= 1.0 - 1e-6).to(torch.float32)
     cls_loss = focal_loss(y_true[..., 4:], y_pred[..., 4:])

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the NMS kernels of two trees on one card, in turns.
+"""Time the kernels of two trees on one card, in turns.
 
     python3 kernel_ab.py PARENT_DIR [--out FILE]
 
@@ -7,9 +7,19 @@ PARENT_DIR is another checkout of the repository (for instance the parent
 commit unpacked with ``git archive``). The script runs a child process in
 the parent tree, then two in this tree, then one more in the parent tree
 (parent, change, change, parent). Each child builds its own tree's kernels
-and times `nms_sweep` and `dense_nms` at the shapes of ``chip_smoke.py``'s
-kernel phase, on the same seeded inputs (that tree's
-``chip_smoke.make_candidates``). A time is the device milliseconds of one
+and times, on the same seeded inputs:
+
+* `nms_sweep` and `dense_nms` at the shapes of ``chip_smoke.py``'s kernel
+  phase (inputs from that tree's ``chip_smoke.make_candidates``);
+* the FCOS class term of a training step over the five level shapes at
+  384 px, batch 16 (the class channels ``y[..., 5:]`` of ``[16, h, h, 25]``
+  maps, read in place), forward and forward + backward: one
+  `focal_loss_group` call where the tree has that entry, else five
+  `focal_loss` calls;
+* `peak_mask_scores` and `peak_scores` at ``[8, 48, 48, 20]`` and
+  ``[8, 64, 64, 20]``.
+
+A time is the device milliseconds of one
 call: CUDA events around 50 calls queued behind a blocker of large matrix
 products, so that the host's enqueue does not show. Prints one JSON line a
 run, then the card (``nvidia-smi`` name and power limit) and a JSON summary
@@ -28,14 +38,16 @@ SWEEP_SHAPES = ((8, 1024, True, False), (8, 1024, False, True),
                 (8, 2048, True, False))
 DENSE_SHAPES = ((8, 3069, 100), (8, 8525, 200), (8, 2304, 100),
                 (1, 2304, 100), (8, 11520, 100), (8, 20480, 100))
+FOCAL_LEVELS = (48, 24, 12, 6, 3)    # h = w of the FCOS levels at 384 px
+PEAK_SHAPES = ((8, 48, 48, 20), (8, 64, 64, 20))
 
 CHILD = r"""
 import json, sys, time
 import numpy as np, torch
 import chip_smoke as cs
-from detectax_torch.kernels import _common, nms as K
+from detectax_torch.kernels import _common, focal as KF, nms as K, peak as KP
 
-sweep_shapes, dense_shapes = json.loads(sys.argv[1])
+sweep_shapes, dense_shapes, focal_levels, peak_shapes = json.loads(sys.argv[1])
 dev = torch.device("cuda", 0)
 _common.load_library()
 K.load_kernels()
@@ -89,12 +101,53 @@ for batch, m, max_outputs in dense_shapes:
               class_aware=True)
     out["dense"].append({"B": batch, "M": m, "max_outputs": max_outputs,
                          "ms": queued_ms(lambda: K.dense_nms(b, s, c, **kw))})
+
+# the FCOS class term: one grouped call where the tree has it
+frng = np.random.default_rng(1)
+segs = []
+for hw in focal_levels:
+    shape = (16, hw, hw, 25)
+    z = torch.from_numpy((frng.uniform(size=shape) < 0.01)
+                         .astype(np.float32)).to(dev)
+    x = torch.from_numpy((4.0 * frng.standard_normal(size=shape))
+                         .astype(np.float32)).to(dev)
+    segs.append((z[..., 5:], x[..., 5:].detach().requires_grad_(True)))
+xs = [x for _, x in segs]
+grouped = hasattr(KF, "focal_loss_group")
+if grouped:
+    ones = torch.ones(len(segs), device=dev)
+    def fwd():
+        return KF.focal_loss_group(segs)
+    def fwd_bwd():
+        torch.autograd.grad(KF.focal_loss_group(segs), xs, ones)
+else:
+    one = torch.ones((), device=dev)
+    def fwd():
+        return [KF.focal_loss(z, x) for z, x in segs]
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), xs, [one] * len(segs))
+with torch.no_grad():
+    fwd_ms = queued_ms(fwd)
+out["focal"] = [
+    {"case": "five_levels_fwd", "grouped": grouped, "ms": fwd_ms},
+    {"case": "five_levels_fwd_bwd", "grouped": grouped,
+     "ms": queued_ms(fwd_bwd)}]
+out["peak"] = []
+prng = np.random.default_rng(2)
+for shape in peak_shapes:
+    t = torch.from_numpy(prng.uniform(0, 1, size=shape)
+                         .astype(np.float32)).to(dev)
+    for sigmoid, fn in ((False, KP.peak_mask_scores), (True, KP.peak_scores)):
+        with torch.no_grad():
+            out["peak"].append({"dims": shape, "sigmoid": sigmoid,
+                                "ms": queued_ms(lambda: fn(t))})
 print("RESULT " + json.dumps(out), flush=True)
 """
 
 
 def run_child(tree: str) -> dict:
-    shapes = json.dumps([SWEEP_SHAPES, DENSE_SHAPES])
+    shapes = json.dumps([SWEEP_SHAPES, DENSE_SHAPES, FOCAL_LEVELS,
+                         PEAK_SHAPES])
     res = subprocess.run([sys.executable, "-c", CHILD, shapes], cwd=tree,
                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                          text=True, timeout=600)
@@ -123,12 +176,13 @@ def main() -> None:
          "--format=csv,noheader"], stdout=subprocess.PIPE, text=True,
         timeout=60).stdout.strip().splitlines()[0]
     summary = {"card": card}
-    for kernel in ("sweep", "dense"):
+    for kernel in ("sweep", "dense", "focal", "peak"):
         rows = []
         for i, shape in enumerate(runs[0][kernel]):
             best = {t: min(r[kernel][i]["ms"] for r in runs if r["tree"] == t)
                     for t in ("parent", "change")}
-            rows.append({**{k: v for k, v in shape.items() if k != "ms"},
+            rows.append({**{k: v for k, v in shape.items()
+                            if k not in ("ms", "grouped")},
                          "parent_ms": best["parent"],
                          "change_ms": best["change"],
                          "speedup": best["parent"] / best["change"]})
