@@ -17,11 +17,19 @@ order:
    heavy overlap, exact score ties, duplicates, degenerate boxes and
    padding, and at edge cases (K = 256, K not a multiple of 64, all
    padding, one class; M below the cluster size, M = 1, nothing above the
-   threshold, one class, class-agnostic, no classes); `nms_sweep`'s mask
+   threshold, one class, class-agnostic, no classes), and past the
+   register and ring tiers of their plans (`nms_sweep` at K = 16,384 and
+   20,000; `dense_nms` at M = 76,725 and 81,920 staged in shared memory,
+   and 327,680 read from device memory; and, untimed, K = 15,001 with
+   padding and no classes, M = 70,001 with no classes and M = 150,001
+   class-agnostic); `nms_sweep`'s mask
    kernel word for word against `suppression_bits_plain`; the focal-loss
    kernel (forward sum rtol 2e-4, dlogits atol 1e-5, two runs bitwise equal) at
    the five level shapes, with a weight mask, with logits of +-100, and
-   on a strided view, and its grouped call (`focal_loss_group`: one
+   on a strided view, a view at an odd float offset and the stride-25
+   class channels each bitwise equal to their clones (sum and dlogits:
+   the order of a sum depends on the sizes alone), and its grouped call
+   (`focal_loss_group`: one
    forward and one backward launch) segment by segment on the five FCOS
    levels read in place, ten segments (class + centerness), one segment,
    a segment of one element, a segment of no rows, mixed weights and
@@ -62,8 +70,20 @@ order:
    path and 2 on the plain path (`centernet_scale_slot_assign`,
    `centernet_s8_loss`, SGD); trains 2 steps through
    `detectax_torch.cli.train_centernet_crowdhuman` and serves one 8-image
-   request at 512 px (20,480 candidates an image) from its checkpoint;
-8. prints one JSON line ``{"kernels": [...]}`` and, last, the ``ok`` line.
+   request at 512 px (20,480 candidates an image) and one 1-image request
+   at 1024 px (81,920) from its checkpoint;
+8. DetBench, evaluation and the FCOS center variants: trains 4 steps
+   through `cli.train_fcos --dataset detbench` at 384 px, batch 16, from
+   the crop-pretrained ResNet-50 trunk in `benchmarks/` (from a fresh
+   init, with a log line, where the checkout lacks it), then runs
+   `cli.evaluate --dataset detbench` over the 256-image eval split on the
+   kernels and on their plain versions, whose summaries must be equal;
+   trains FCOS "center" (Adam) and "center_v1" (SGD), the centerness a
+   focal term, for 2 steps on the kernel path and 2 on the plain path,
+   then through `cli.train_fcos_center_voc` and
+   `cli.train_fcos_center_v1_voc`, and serves one request from each
+   checkpoint on the kernels and on the plain versions;
+9. prints one JSON line ``{"kernels": [...]}`` and, last, the ``ok`` line.
 
 It imports `detectax_torch` only — nothing of JAX or of `detectax`.
 """
@@ -97,6 +117,8 @@ from detectax_torch.ops.assign import (
     centernet_heatmap_assign,
     centernet_scale_slot_assign,
     fcos_assign,
+    fcos_center_assign,
+    fcos_center_v1_assign,
 )
 from detectax_torch.train.driver import restore_for_inference
 from detectax_torch.train.loop import create_train_state, make_train_step
@@ -311,7 +333,7 @@ def bound(bytes_moved: int, flops: int) -> tuple[float, str]:
 # --------------------------------------------------------------------------
 
 def check_sweep(rng, batch, k, *, class_aware, with_valid, case="crowded",
-                timed=True):
+                timed=True, plain_reps=2):
     """`nms_sweep` and its mask kernel alone against the plain versions on
     score-sorted crowded boxes: keep bits and mask words exactly, two runs
     bitwise equal. `case`: "crowded", "all_invalid" (every candidate
@@ -367,7 +389,7 @@ def check_sweep(rng, batch, k, *, class_aware, with_valid, case="crowded",
                         reps=50)
     call_ms = time_ms(lambda: K.nms_sweep(*args, **kw), warmup=3, reps=50)
     plain_ms = time_ms(lambda: K.nms_sweep_plain(*args, **kw),
-                       warmup=1, reps=2)
+                       warmup=min(plain_reps, 1), reps=plain_reps)
     # work this data needs: one IoU row (the j > i part) per kept box
     idx = torch.arange(k, device=DEV)
     pairs = int((want * (k - 1 - idx)).sum())
@@ -385,7 +407,7 @@ def check_sweep(rng, batch, k, *, class_aware, with_valid, case="crowded",
 
 
 def check_dense(rng, batch, m, max_outputs, *, case="crowded",
-                class_aware=True, timed=True):
+                class_aware=True, timed=True, plain_reps=2):
     """`dense_nms` against its plain version: every output exactly, two
     runs bitwise equal. `case`: "crowded", "below_threshold" (every score
     under score_thresh), "one_class" (every candidate of class 2),
@@ -435,7 +457,7 @@ def check_dense(rng, batch, m, max_outputs, *, case="crowded",
     ms = queued_ms(lambda: K.dense_nms(b, s, c, **kw), reps=50)
     call_ms = time_ms(lambda: K.dense_nms(b, s, c, **kw), warmup=3, reps=50)
     plain_ms = time_ms(lambda: K.dense_nms_plain(b, s, c, **kw),
-                       warmup=1, reps=2)
+                       warmup=min(plain_reps, 1), reps=plain_reps)
     # rounds this data needs: one per survivor, one more to find none left
     rounds = nv + (nv < max_outputs).to(nv.dtype)
     flops = (int(rounds.sum()) * m * DENSE_FLOPS_PER_CANDIDATE_ROUND
@@ -588,6 +610,55 @@ def check_focal_all(rng):
              check_focal(rng, S8_CANVAS // 8, case="strided",
                          classes=NUM_CLASSES, slots=len(S8_SCALES), lead=4)]
     return rows
+
+
+def check_focal_alignment(rng):
+    """The focal sum depends on the values and the (rows, cols) alone: a
+    `[16, 48, 48, 20]` view at an odd float offset (read with 4-byte loads)
+    and its clone (16-byte loads) give the same sum and the same dlogits
+    bit for bit, and so do the FCOS class channels ``y[..., 5:]`` of a
+    `[16, 48, 48, 25]` map (row stride 25) and their clone (stride 20)."""
+    shape = (FOCAL_BATCH, FOCAL_LEVELS[0], FOCAL_LEVELS[0], NUM_CLASSES)
+    n = int(np.prod(shape))
+    labels = (rng.uniform(size=n) < 0.02).astype(np.float32)
+    logits = (4.0 * rng.standard_normal(n)).astype(np.float32)
+
+    def offset_view(values):
+        buf = torch.zeros(n + 1, device=DEV)
+        buf[1:] = cuda(values)
+        return buf[1:].view(shape)
+
+    wide = shape[:-1] + (5 + NUM_CLASSES,)
+    zw = torch.zeros(wide, device=DEV)
+    xw = torch.zeros(wide, device=DEV)
+    zw[..., 5:] = cuda(labels.reshape(shape))
+    xw[..., 5:] = cuda(logits.reshape(shape))
+    pairs = {"odd_offset": (offset_view(labels), offset_view(logits)),
+             "class_channels_of_25": (zw[..., 5:], xw[..., 5:])}
+    out = {}
+    for name, (z, x) in pairs.items():
+        zc, xc = z.clone(), x.clone()
+        modes = [KF._walk_mode(KF._prepare(a, b, None), None)
+                 for a, b in ((z, x), (zc, xc))]
+        check(modes == [KF._QUAD4, KF._QUAD16],
+              f"focal alignment {name}: walk modes {modes}, expected the "
+              f"4-byte and the 16-byte walk")
+        sums, grads = [], []
+        for zz, xx in ((z, x), (zc, xc)):
+            leaf = xx.detach().requires_grad_(True)
+            total = KF.focal_loss(zz, leaf)
+            total.backward()
+            sums.append(total.detach())
+            grads.append(leaf.grad)
+        torch.cuda.synchronize()
+        check(torch.equal(sums[0], sums[1]),
+              f"focal alignment {name}: sums {sums[0].item()!r} and "
+              f"{sums[1].item()!r} differ")
+        check(torch.equal(grads[0], grads[1]),
+              f"focal alignment {name}: dlogits differ")
+        out[name] = {"sum": sums[0].item(), "walk_modes": modes,
+                     "bitwise_equal": True}
+    return out
 
 
 FOCAL_GROUP_CASES = ("levels", "levels_and_centerness", "one_segment",
@@ -1658,8 +1729,208 @@ def s8_cli_path():
           and (dets["classes"][dets["valid"]] < nc).all(),
           f"{name}: no or impossible detections")
     same_detections(name, dets, want)
+    # the same checkpoint on one 1024-px image, as `cli.infer_centernet
+    # --variant s8 --img_dims 1024` serves it: 81,920 candidates, past the
+    # dense kernel's register tier (its shared-memory tier)
+    side = 2 * S8_CANVAS
+    check(K._dense_plan(len(S8_SCALES) * (side // 8) ** 2)["tier"]
+          == "shared", "the 1024-px request is not on the shared tier")
+    big = [centernet_predictor(model, kernels=k, buckets=(1,), canvas=side,
+                               score_thresh=0.0) for k in (None, "plain")]
+    image = rng.uniform(0, 1, size=(1, side, side, 3)).astype(np.float32)
+    kcommon.reset_launch_counts()
+    dets = big[0].predict(image)
+    check(kcommon.launch_counts() == {"dense_nms": 1},
+          f"1024-px request launched {kcommon.launch_counts()}")
+    check(int(dets["num_valid"][0]) > 0, "1024-px request: no detection")
+    same_detections(f"{name} at {side} px", dets, big[1].predict(image))
+    return {**{k: summary[k] for k in ("final_step", "images_per_sec",
+                                       "total", "grad_norm")},
+            f"num_valid_at_{side}_px": int(dets["num_valid"][0])}
+
+
+# --------------------------------------------------------------------------
+# phase 8: DetBench, evaluation and the FCOS center variants
+# --------------------------------------------------------------------------
+
+TRUNK = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                     "benchmarks", "runs", "pretrain_r50", "backbone.msgpack")
+DETBENCH_STEPS = 4
+
+
+def detbench_path():
+    """`cli.train_fcos --dataset detbench` for 4 steps at 384 px, batch 16,
+    from the crop-pretrained trunk where the checkout holds it, then
+    `cli.evaluate --dataset detbench` over the 256-image eval split twice:
+    on the kernels (the counted run: the fused dense kernel, one launch a
+    batch of 8) and with every kernel on its plain version; the two
+    summaries must be equal. DetBench is generated into a temporary cache.
+    Four steps leave the scores near the focal prior, so the evaluation
+    keeps every candidate (no score threshold): each image then has 100
+    detections to compare."""
+    import contextlib
+    import io
+
+    from detectax_torch.cli import evaluate, train_fcos
+    from detectax_torch.data.detbench import DetBenchDataset
+
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["DETECTAX_DETBENCH_CACHE"] = os.path.join(tmp, "cache")
+        ckpt_dir = os.path.join(tmp, "ckpt")
+        init = (["--init_backbone", TRUNK, "--freeze_bn"]
+                if os.path.exists(TRUNK) else [])
+        log(f"detbench: training from the crop-pretrained trunk {TRUNK}"
+            if init else "detbench: the checkout holds no pretrained trunk; "
+            "training from a fresh seeded init")
+        t0 = time.perf_counter()
+        DetBenchDataset("train")
+        DetBenchDataset("eval")
+        cache_s = time.perf_counter() - t0
+        kcommon.reset_launch_counts()
+        summary = train_fcos.main([
+            "--dataset", "detbench", "--backbone", BACKBONE,
+            "--canvas", str(CANVAS), "--batch_size", "16",
+            "--max_steps", str(DETBENCH_STEPS), "--display_step", "2",
+            "--step_save", str(DETBENCH_STEPS), "--ckpt_dir", ckpt_dir,
+            "--out_dir", os.path.join(tmp, "out"), *init,
+        ])
+        train_counts = kcommon.launch_counts()
+        check(summary["final_step"] == DETBENCH_STEPS
+              and np.isfinite(summary["total"]),
+              f"DetBench training: {summary}")
+        check(train_counts == {"focal_fwd": DETBENCH_STEPS,
+                               "focal_bwd": DETBENCH_STEPS},
+              f"DetBench training launched {train_counts}")
+        argv = ["--family", "fcos", "--dataset", "detbench",
+                "--backbone", BACKBONE, "--ckpt_dir", ckpt_dir,
+                "--coco_metrics", "--cls_thresh", "0.0"]
+        quiet = io.StringIO()
+        # ---- the counted run: counts set to 0 just before, read just after
+        kcommon.reset_launch_counts()
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(quiet):
+            got = evaluate.main(argv)
+        eval_s = time.perf_counter() - t1
+        counts = kcommon.launch_counts()
+        # ----
+        with contextlib.redirect_stdout(quiet):
+            want = evaluate.main(argv + ["--plain_kernels"])
+        check(kcommon.launch_counts() == counts,
+              "the plain-kernel evaluation launched a kernel")
+        del os.environ["DETECTAX_DETBENCH_CACHE"]
+    batches = -(-256 // 8)
+    check(counts == {"dense_nms": batches},
+          f"DetBench evaluation launched {counts}, expected {batches} "
+          f"dense_nms")
+    check(got["num_images"] == 256, f"evaluated {got['num_images']} images")
+    check(got == want, f"DetBench summaries differ: kernels {got}, plain "
+                       f"versions {want}")
+    return counts, {
+        "trunk": bool(init), "cache_s": cache_s, "train": {
+            k: summary[k] for k in ("final_step", "images_per_sec", "total",
+                                    "grad_norm")},
+        "eval_s": eval_s, "eval_images_per_s": 256 / eval_s,
+        "summary": got, "summaries_equal": True,
+    }
+
+
+CENTER_STEPS = 2
+# variant: (its trainer CLI, its optimizer)
+CENTER_VARIANTS = {"center": ("train_fcos_center_voc", "adam"),
+                   "center_v1": ("train_fcos_center_v1_voc", "sgd")}
+
+
+def center_assign_fn(variant):
+    img = (CANVAS, CANVAS)
+    if variant == "center":
+        return lambda b, l, v: fcos_center_assign(
+            b, l, v, img_dim=img, num_classes=NUM_CLASSES,
+            center_only=True)[0]
+    return lambda b, l, v: fcos_center_v1_assign(
+        b, l, v, img_dim=img, num_classes=NUM_CLASSES)[0]
+
+
+def make_center_trainer(variant, *, kernels=None):
+    """FCOS `variant` at full width as its trainer composes it: the center
+    assigner, `fcos_loss` with the centerness as a focal term (ten
+    segments, one grouped call), Adam piecewise (center) or SGD-momentum
+    with exponential decay (center_v1), clip 1.0."""
+    model = FCOS(num_classes=NUM_CLASSES, variant=variant, backbone=BACKBONE,
+                 generator=torch.Generator().manual_seed(SEED)).to(DEV)
+    if variant == "center":
+        opt = make_optimizer("adam", piecewise_constant(1e-3, [8000], [0.1]),
+                             grad_clip=1.0)
+    else:
+        opt = make_optimizer("sgd", exponential_with_floor(0.01),
+                             grad_clip=1.0)
+    loss = functools.partial(fcos_loss, reg_type="l1", cen_type="focal",
+                             kernels=kernels)
+    step = make_train_step(model, center_assign_fn(variant), loss, opt)
+    return model, create_train_state(model, None, opt), step
+
+
+def center_cli(variant, cli):
+    """The variant's trainer CLI for 2 steps on the synthetic dataset, then
+    one 8-image request from its checkpoint, kernels against plain
+    versions."""
+    import importlib
+
+    main_fn = importlib.import_module(f"detectax_torch.cli.{cli}").main
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt_dir = os.path.join(tmp, "ckpt")
+        kcommon.reset_launch_counts()
+        summary = main_fn([
+            "--backbone", BACKBONE, "--canvas", str(CANVAS),
+            "--batch_size", "16", "--max_steps", str(CENTER_STEPS),
+            "--display_step", "1", "--step_save", str(CENTER_STEPS),
+            "--synthetic_n", "32", "--ckpt_dir", ckpt_dir,
+            "--out_dir", os.path.join(tmp, "out"),
+        ])
+        counts = kcommon.launch_counts()
+        check(summary["final_step"] == CENTER_STEPS
+              and np.isfinite(summary["total"]), f"{cli} trained {summary}")
+        check(counts == {"focal_fwd": CENTER_STEPS,
+                         "focal_bwd": CENTER_STEPS},
+              f"{cli} launched {counts}, expected one focal launch each "
+              f"way a step")
+        nc = 3  # the synthetic dataset's classes
+        model = FCOS(num_classes=nc, variant=variant,
+                     backbone=BACKBONE).to(DEV)
+        restore_for_inference(ckpt_dir, model)
+    decode = fcos_decode_fn(variant, CANVAS)
+    preds = [Predictor.for_model(
+        make_serving_fn(model, decode, kernels=k, score_thresh=0.0), model,
+        canvas=CANVAS, buckets=(8,), device=DEV) for k in (None, "plain")]
+    images = np.random.default_rng(SEED + 6).uniform(
+        -1, 1, size=(8, CANVAS, CANVAS, 3)).astype(np.float32)
+    kcommon.reset_launch_counts()
+    dets = preds[0].predict(images)
+    check(kcommon.launch_counts() == {"dense_nms": 1},
+          f"{cli} request launched {kcommon.launch_counts()}")
+    name = f"{cli} request from the checkpoint"
+    check(dets["boxes"].shape == (8, 100, 4), f"{name}: wrong shapes")
+    check(np.isfinite(dets["boxes"]).all()
+          and np.isfinite(dets["scores"]).all(), f"{name}: non-finite")
+    check((dets["num_valid"] > 0).all()
+          and (dets["classes"][dets["valid"]] < nc).all(),
+          f"{name}: no or impossible detections")
+    same_detections(name, dets, preds[1].predict(images))
     return {k: summary[k] for k in ("final_step", "images_per_sec", "total",
                                     "grad_norm")}
+
+
+def center_paths():
+    counts, out = {}, {}
+    for variant, (cli, opt) in CENTER_VARIANTS.items():
+        batches = [{k: cuda(v) for k, v in train_batch(SEED + 40 + i).items()}
+                   for i in range(CENTER_STEPS)]
+        counts[variant], rows = kernel_and_plain_steps(
+            f"FCOS {variant} training",
+            functools.partial(make_center_trainer, variant),
+            center_assign_fn(variant), batches, warmup=False)
+        out[variant] = {"optimizer": opt, **rows,
+                        "cli": center_cli(variant, cli)}
+    return counts, out
 
 
 # --------------------------------------------------------------------------
@@ -1736,6 +2007,22 @@ def main() -> None:
              check_dense(edge, 4, 3069, 100, case="one_class", timed=False),
              check_dense(edge, 4, 3069, 100, class_aware=False, timed=False),
              check_dense(edge, 4, 3069, 50, case="no_classes", timed=False)]
+    # past the plans' former bounds: the wide sweep (K > 14,464); the
+    # dense set staged in shared memory (RetinaNet at 640 px, CenterNetS8
+    # at 1024 px) and read from device memory (327,680)
+    big = np.random.default_rng(SEED + 8)
+    sweep += [check_sweep(big, 1, k, class_aware=True, with_valid=False,
+                          plain_reps=1) for k in (16384, 20000)]
+    dense += [check_dense(big, 2, 76725, 100, plain_reps=1),
+              check_dense(big, 2, 81920, 100, plain_reps=1),
+              check_dense(big, 1, 327680, 100, plain_reps=1)]
+    # the same tiers at odd sizes, padding, class-agnostic, no classes
+    sweep.append(check_sweep(big, 2, 15001, class_aware=False,
+                             with_valid=True, timed=False))
+    dense += [check_dense(big, 1, 70001, 100, case="no_classes",
+                          timed=False),
+              check_dense(big, 2, 150001, 50, class_aware=False,
+                          timed=False)]
     for r in sweep:
         if "ms" in r:
             r["chain_ms"] = r["shape"]["K"] * step_ns * 1e-6
@@ -1748,6 +2035,8 @@ def main() -> None:
             r["chain_ms"] = r["rounds_max"] * r["empty_round_us"] * 1e-3
         log(f"kernel dense_nms {json.dumps(r)}")
     focal = check_focal_all(rng)
+    focal[0]["alignment"] = check_focal_alignment(
+        np.random.default_rng(SEED + 9))
     for r in focal:
         log(f"kernel focal {json.dumps(r)}")
     groups = check_focal_groups(np.random.default_rng(SEED + 7))
@@ -1789,14 +2078,25 @@ def main() -> None:
         "card": card, "model": f"CenterNetS8 {BACKBONE}", "dtype": "float32",
         "classes": NUM_CLASSES, **s8_training}))
     log("centernet_s8_cli " + json.dumps(s8_cli_path()))
+    db_counts, detbench = detbench_path()
+    log("detbench " + json.dumps({"card": card, "model": f"FCOS {BACKBONE} "
+                                  "FPN", "canvas": CANVAS, **detbench}))
+    center_counts, center = center_paths()
+    log("fcos_center " + json.dumps({"card": card, "canvas": CANVAS,
+                                     "classes": NUM_CLASSES, **center}))
 
     by_path = {
         "nms_sweep": {"fcos_serving": counts["nms_sweep"]},
         "dense_nms": {"fcos_serving": counts["dense_nms"],
-                      "centernet_serving": cn_counts["dense_nms"]},
+                      "centernet_serving": cn_counts["dense_nms"],
+                      "detbench_evaluation": db_counts["dense_nms"]},
         "focal": {"fcos_training": train_counts["focal_fwd"],
                   "centernet_training": cn_train_counts["focal_fwd"],
-                  "centernet_s8_training": s8_train_counts["focal_fwd"]},
+                  "centernet_s8_training": s8_train_counts["focal_fwd"],
+                  "fcos_center_training":
+                      center_counts["center"]["focal_fwd"],
+                  "fcos_center_v1_training":
+                      center_counts["center_v1"]["focal_fwd"]},
         "peak": {"centernet_serving": cn_counts["peak"]},
     }
     for name, paths in by_path.items():
@@ -1805,7 +2105,9 @@ def main() -> None:
     counts = {name: sum(paths.values()) for name, paths in by_path.items()}
     focal[0]["launches_bwd"] = (train_counts["focal_bwd"]
                                 + cn_train_counts["focal_bwd"]
-                                + s8_train_counts["focal_bwd"])
+                                + s8_train_counts["focal_bwd"]
+                                + sum(c["focal_bwd"]
+                                      for c in center_counts.values()))
     # the five levels: one grouped call (what training runs), and beside it
     # the five single calls of the per-level rows
     levels, grouped = focal[:len(FOCAL_LEVELS)], groups[0]

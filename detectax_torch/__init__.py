@@ -8,8 +8,10 @@ imports `torch` and numpy only — never `jax`, `flax` or anything under
 
 Ported so far: the FCOS serving path (`infer.serving.Predictor` →
 `infer.export.make_serving_fn` → `ops.nms`) with its two NMS kernels, the
-FCOS training path with the focal-loss kernel, and the serving and training
-paths of the ResNet-backbone CenterNet family with the peak-decode kernel.
+FCOS training path (all three assignment variants) with the focal-loss
+kernel, the serving and training paths of the ResNet-backbone CenterNet
+family with the peak-decode kernel, and DetBench with the evaluation CLI
+(`cli.evaluate`, `eval.detection_metrics`).
 """
 
 __version__ = "0.1.0"

@@ -19,8 +19,9 @@ def add_train_args(p: argparse.ArgumentParser, **defaults):
                             "detbench_v2_crowd"),
                    default=d("dataset", "synthetic"),
                    help="built-in dataset when --index is not given: "
-                        "'synthetic' (smoke); the 'detbench' datasets are "
-                        "not ported yet")
+                        "'synthetic' (smoke) or a DetBench split "
+                        "(benchmarks/detbench_v1/v2/v2_crowd .json, or the "
+                        "built-in specs where that directory is absent)")
     p.add_argument("--synthetic_n", type=int, default=d("synthetic_n", 128),
                    help="synthetic dataset size when --index is not given")
     p.add_argument("--batch_size", type=int, default=d("batch_size", 16))
@@ -54,15 +55,18 @@ def add_train_args(p: argparse.ArgumentParser, **defaults):
     p.add_argument("--step_save", type=int, default=d("step_save", 500))
     p.add_argument("--resume", action="store_true")
     p.add_argument("--dump_visuals", action="store_true",
-                   help="write GT/pred heatmap + overlay jpgs on display "
-                        "steps (not ported yet)")
+                   help="write pred heatmap + overlay jpgs on display "
+                        "steps (needs matplotlib; raises at start-up "
+                        "without it)")
     p.add_argument("--seed", type=int, default=d("seed", 0))
     p.add_argument("--bf16", action="store_true",
                    help="bfloat16 compute (not ported yet: float32 only)")
     p.add_argument("--init_backbone", default=d("init_backbone", None),
-                   help=".npz of backbone weights "
-                        "(detectax_torch.tools.from_flax.save_npz) to "
-                        "initialize from. Pair with a compat backbone name "
+                   help="backbone weights to initialize from: the "
+                        "port's .npz (detectax_torch.tools.from_flax."
+                        "save_npz) or a Flax .msgpack of the JAX package "
+                        "(benchmarks/runs/pretrain_r50/backbone.msgpack). "
+                        "Pair with a compat backbone name "
                         "(--backbone resnet50:keras / resnext50:torch) so "
                         "the trunk geometry matches the ported zoo exactly")
     p.add_argument("--freeze_bn", action="store_true",
@@ -82,24 +86,23 @@ def add_train_args(p: argparse.ArgumentParser, **defaults):
 
 def check_ported(args) -> None:
     """Raise for the flags whose code waits for a later slice."""
-    waiting = {
-        "--bf16": args.bf16,
-        "--dump_visuals": args.dump_visuals,
-        f"--dataset {args.dataset}": (
-            not args.index and args.dataset.startswith("detbench")),
-    }
-    for flag, asked in waiting.items():
-        if asked:
-            raise NotImplementedError(
-                f"{flag} is not ported yet; the port trains in float32 on "
-                "the synthetic dataset or a dataset index")
+    if args.bf16:
+        raise NotImplementedError(
+            "--bf16 is not ported yet (ROADMAP.md queue 1, the rest of the "
+            "training flags); the port trains in float32")
 
 
-def dataset_from_args(args):
+def dataset_from_args(args, split: str = "train"):
     if args.index:
         from detectax_torch.data.index import IndexDataset
 
         return IndexDataset(args.index)
+    name = getattr(args, "dataset", "synthetic")
+    if name.startswith("detbench"):
+        from detectax_torch.data.detbench import DetBenchDataset, load_spec
+
+        # sizes come from the committed spec for the selected benchmark
+        return DetBenchDataset(split, spec=load_spec(name=name))
     from detectax_torch.data.synthetic import SyntheticDataset
 
     return SyntheticDataset(n=args.synthetic_n, img_size=args.canvas)
@@ -118,6 +121,7 @@ def config_from_args(args, **overrides) -> TrainConfig:
         display_step=args.display_step,
         step_save=args.step_save,
         resume=args.resume,
+        dump_visuals=args.dump_visuals,
         seed=args.seed,
         profile_steps=(
             tuple(args.profile_steps) if args.profile_steps else None

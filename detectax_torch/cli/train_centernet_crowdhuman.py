@@ -21,6 +21,7 @@ from detectax_torch.cli._common import (
     config_from_args,
     dataset_from_args,
 )
+from detectax_torch.cli._eval_hooks import centernet_s8_eval_hook
 from detectax_torch.models import CenterNetS8
 from detectax_torch.ops import assign
 from detectax_torch.runtime import resolve_device
@@ -88,7 +89,12 @@ def main(argv=None):
         )
         return out
 
-    return fit(cfg, model, dataset, assign_fn, det_losses.centernet_s8_loss)
+    hook = (
+        centernet_s8_eval_hook(tuple(args.box_scales), dataset.id_to_label)
+        if cfg.dump_visuals else None
+    )
+    return fit(cfg, model, dataset, assign_fn, det_losses.centernet_s8_loss,
+               eval_hook=hook)
 
 
 if __name__ == "__main__":

@@ -43,6 +43,10 @@ def main(argv=None):
     p.add_argument("--reg_type", choices=("l1", "iou"), default="l1")
     args = p.parse_args(argv)
     check_ported(args)
+    if args.dump_visuals:
+        raise NotImplementedError(
+            "--dump_visuals: this trainer has no visual hook (neither has "
+            "the JAX package's)")
     resolve_device(args.device)  # fail before any work without a device
 
     dataset = dataset_from_args(args)

@@ -20,6 +20,7 @@ from detectax_torch.cli._common import (
     config_from_args,
     dataset_from_args,
 )
+from detectax_torch.cli._eval_hooks import fcos_eval_hook
 from detectax_torch.models import FCOS
 from detectax_torch.ops import assign
 from detectax_torch.runtime import resolve_device
@@ -68,7 +69,8 @@ def main(argv=None):
         return outs
 
     loss_fn = functools.partial(det_losses.fcos_loss, reg_type=args.reg_type)
-    return fit(cfg, model, dataset, assign_fn, loss_fn)
+    hook = fcos_eval_hook(nc, dataset.id_to_label) if cfg.dump_visuals else None
+    return fit(cfg, model, dataset, assign_fn, loss_fn, eval_hook=hook)
 
 
 if __name__ == "__main__":

@@ -11,11 +11,16 @@ from typing import Mapping, Sequence
 import numpy as np
 
 
-def _pyplot():
+def require_matplotlib():
+    """pyplot on the headless backend; raises, naming the package, where
+    matplotlib is not installed (an entry point that will draw calls it
+    before it starts)."""
     try:
         import matplotlib
     except ImportError as e:
-        raise RuntimeError("matplotlib is required to draw images") from e
+        raise RuntimeError(
+            "matplotlib is required to draw images and is not installed"
+        ) from e
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt
 
@@ -43,7 +48,7 @@ def visualize_detections(
     figsize=(7, 7),
 ):
     """Draw pixel-coordinate (y1,x1,y2,x2) boxes over the image and save."""
-    plt = _pyplot()
+    plt = require_matplotlib()
     img = _denormalize_image(image)
     fig, ax = plt.subplots(1, 1, figsize=figsize)
     ax.imshow(img)
@@ -78,7 +83,7 @@ def save_heatmap(
     title: str | None = None,
 ):
     """Save a [h, w] probability map (optionally beside the image)."""
-    plt = _pyplot()
+    plt = require_matplotlib()
     if image is not None:
         fig, (ax0, ax1) = plt.subplots(1, 2, figsize=(12, 6))
         ax0.imshow(_denormalize_image(image))

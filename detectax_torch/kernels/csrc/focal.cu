@@ -23,16 +23,23 @@
 // segment table travels as a kernel parameter: each segment's pointers,
 // row strides, rows, cols, an optional weights pointer, its first block
 // and its rows per block. The wrapper (kernels/focal.py::_focal_plan) sizes
-// the grid to the card's 132 SMs from the segment sizes alone, so the
-// order in which a sum is formed depends on the sizes and nothing else.
+// the grid to the card's 132 SMs from the segment sizes alone, and the
+// walk below hands elements to threads by (rows, cols) alone, so the order
+// in which a sum is formed depends on the sizes and nothing else: not on
+// the strides, the pointers' alignment or the width of the loads.
 //
 // A block walks whole rows of its segment: with u = cols units a row (a
-// unit is a float, or four when every pointer and stride allows 16-byte
-// loads), thread t takes unit t % u of row t / u of each group of
+// unit is four consecutive floats when cols is a multiple of 4, else one
+// float), thread t takes unit t % u of row t / u of each group of
 // 256 / u rows; a row of more than 256 units is walked 256 units at a
 // time. The offsets are formed once a row, so no element pays a division,
 // and a thread issues the loads of four floats (four rows, or one row's
-// unit of four) before any of their arithmetic.
+// unit of four) before any of their arithmetic. Which elements a thread
+// takes, and in which order it adds them, thus depends on (rows, cols)
+// alone; where every pointer and row stride is a multiple of 16 bytes a
+// unit of four is read with one 16-byte load, else with four 4-byte
+// loads of the same floats. A view at an odd offset and its clone give
+// the same bits.
 //
 // The forward reduces in one launch, without atomics on any float: each
 // block folds its threads' sums in a fixed order (warp shuffles, then one
@@ -74,7 +81,7 @@ struct Segment {
     int64_t rows;
     int64_t rows_per_block;
     int32_t cols;
-    int32_t vec;              // 1: four floats a unit (16-byte loads)
+    int32_t unit;             // kScalar, kQuad16 or kQuad4 (below)
     int32_t first_block;      // this segment's blocks are
     int32_t blocks;           // [first_block, first_block + blocks)
 };
@@ -128,15 +135,24 @@ __device__ __forceinline__ float focal_grad(float z, float x, float alpha,
     return z * dpos + (1.0f - z) * dneg;
 }
 
-// One unit: a float, or four consecutive floats of a row.
-template <bool VEC> struct Unit;
-template <> struct Unit<false> {
+// How a segment is walked: one float a unit (cols not a multiple of 4),
+// or four consecutive floats a unit read by one 16-byte load or by four
+// 4-byte loads. The two quad modes take the same elements in the same
+// order; only the width of their loads differs.
+constexpr int kScalar = 0;
+constexpr int kQuad16 = 1;
+constexpr int kQuad4 = 2;
+
+template <int MODE> struct Unit;
+template <> struct Unit<kScalar> {
     using T = float;
     static constexpr int n = 1;
+    static __device__ __forceinline__ T load(const float* p) { return *p; }
+    static __device__ __forceinline__ void store(float* p, const T& v) { *p = v; }
     static __device__ __forceinline__ float get(const T& v, int) { return v; }
     static __device__ __forceinline__ void set(T& v, int, float f) { v = f; }
 };
-template <> struct Unit<true> {
+struct Quad {
     using T = float4;
     static constexpr int n = 4;
     static __device__ __forceinline__ float get(const T& v, int k)
@@ -149,16 +165,36 @@ template <> struct Unit<true> {
         else if (k == 2) v.z = f; else v.w = f;
     }
 };
+template <> struct Unit<kQuad16> : Quad {
+    static __device__ __forceinline__ T load(const float* p)
+    {
+        return *reinterpret_cast<const float4*>(p);
+    }
+    static __device__ __forceinline__ void store(float* p, const T& v)
+    {
+        *reinterpret_cast<float4*>(p) = v;
+    }
+};
+template <> struct Unit<kQuad4> : Quad {
+    static __device__ __forceinline__ T load(const float* p)
+    {
+        return make_float4(p[0], p[1], p[2], p[3]);
+    }
+    static __device__ __forceinline__ void store(float* p, const T& v)
+    {
+        p[0] = v.x; p[1] = v.y; p[2] = v.z; p[3] = v.w;
+    }
+};
 
 // Walks rows [r0, r1) of `sg` with every thread of the block. FORWARD adds
 // each element's loss to `acc` in a fixed order (row groups in order, then
 // the four floats of a unit in order); the backward writes g * dloss.
-template <bool VEC, bool G2, bool FORWARD>
+template <int MODE, bool G2, bool FORWARD>
 __device__ __forceinline__ void walk(const Segment& sg, int64_t r0,
                                      int64_t r1, float alpha, float gamma,
                                      float g, float& acc)
 {
-    using U = Unit<VEC>;
+    using U = Unit<MODE>;
     using T = typename U::T;
     constexpr int kRows = kUnroll / U::n;   // rows whose loads go together
     const int units = sg.cols / U::n;
@@ -167,13 +203,12 @@ __device__ __forceinline__ void walk(const Segment& sg, int64_t r0,
     const int c0 = t - dr * units;
     const int rows_per_group = units >= kThreads ? 1 : kThreads / units;
     if (dr >= rows_per_group) return;   // the block's tail threads
-    const T* __restrict__ zs = reinterpret_cast<const T*>(sg.labels);
-    const T* __restrict__ xs = reinterpret_cast<const T*>(sg.logits);
-    const T* __restrict__ ws = reinterpret_cast<const T*>(sg.weights);
-    T* __restrict__ ds = reinterpret_cast<T*>(sg.dlogits);
-    const int64_t zstride = sg.labels_stride / U::n;
-    const int64_t xstride = sg.logits_stride / U::n;
+    const float* __restrict__ zs = sg.labels;
+    const float* __restrict__ xs = sg.logits;
+    const float* __restrict__ ws = sg.weights;
+    float* __restrict__ ds = sg.dlogits;
     for (int c = c0; c < units; c += kThreads) {
+        const int64_t col = static_cast<int64_t>(c) * U::n;  // in floats
         for (int64_t base = r0 + dr; base < r1;
              base += static_cast<int64_t>(kRows) * rows_per_group) {
             T z[kRows], x[kRows], w[kRows];
@@ -183,9 +218,9 @@ __device__ __forceinline__ void walk(const Segment& sg, int64_t r0,
                 const int64_t row = base + static_cast<int64_t>(k) * rows_per_group;
                 ok[k] = row < r1;
                 if (ok[k]) {
-                    z[k] = zs[row * zstride + c];
-                    x[k] = xs[row * xstride + c];
-                    if (ws != nullptr) w[k] = ws[row * units + c];
+                    z[k] = U::load(zs + row * sg.labels_stride + col);
+                    x[k] = U::load(xs + row * sg.logits_stride + col);
+                    if (ws != nullptr) w[k] = U::load(ws + row * sg.cols + col);
                 }
             }
 #pragma unroll
@@ -207,7 +242,7 @@ __device__ __forceinline__ void walk(const Segment& sg, int64_t r0,
                 }
                 if (!FORWARD) {
                     const int64_t row = base + static_cast<int64_t>(k) * rows_per_group;
-                    ds[row * units + c] = out;
+                    U::store(ds + row * sg.cols + col, out);
                 }
             }
         }
@@ -236,10 +271,12 @@ __device__ __forceinline__ void block_walk(const Table& table, float alpha,
     const int64_t end = r0 + sg.rows_per_block;
     const int64_t r1 = end < sg.rows ? end : sg.rows;
     const float g = FORWARD ? 0.0f : upstream[s];
-    if (sg.vec)
-        walk<true, G2, FORWARD>(sg, r0, r1, alpha, gamma, g, acc);
+    if (sg.unit == kQuad16)
+        walk<kQuad16, G2, FORWARD>(sg, r0, r1, alpha, gamma, g, acc);
+    else if (sg.unit == kQuad4)
+        walk<kQuad4, G2, FORWARD>(sg, r0, r1, alpha, gamma, g, acc);
     else
-        walk<false, G2, FORWARD>(sg, r0, r1, alpha, gamma, g, acc);
+        walk<kScalar, G2, FORWARD>(sg, r0, r1, alpha, gamma, g, acc);
 }
 
 __device__ __forceinline__ float warp_sum(float v)
@@ -303,7 +340,7 @@ focal_bwd_kernel(const __grid_constant__ Table table, float alpha,
 }
 
 // desc: count rows of 8 int64 (labels_stride, logits_stride, rows, cols,
-// vec, first_block, blocks, rows_per_block); ptrs: count rows of 4
+// unit, first_block, blocks, rows_per_block); ptrs: count rows of 4
 // (labels, logits, weights or null, dlogits or null).
 int fill_table(Table& table, int count, const int64_t* desc,
                const void* const* ptrs, int* blocks)
@@ -323,11 +360,13 @@ int fill_table(Table& table, int count, const int64_t* desc,
         sg.logits_stride = d[1];
         sg.rows = d[2];
         sg.cols = static_cast<int32_t>(d[3]);
-        sg.vec = static_cast<int32_t>(d[4]);
+        sg.unit = static_cast<int32_t>(d[4]);
         sg.first_block = static_cast<int32_t>(d[5]);
         sg.blocks = static_cast<int32_t>(d[6]);
         sg.rows_per_block = d[7];
-        if (sg.first_block != total) return -1;
+        if (sg.first_block != total || sg.unit < kScalar || sg.unit > kQuad4
+            || (sg.unit != kScalar && sg.cols % 4 != 0))
+            return -1;
         total += sg.blocks;
     }
     *blocks = total;

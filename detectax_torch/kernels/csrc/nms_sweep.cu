@@ -30,6 +30,19 @@
 //       word r is clear, and then ORs that row's diagonal word in. The
 //       kept rows of the tile then OR their words past r into the removed
 //       set, every lane its own words, with no dependence between rows.
+//   (c) Above K = 14,464 two 64-row tiles of the mask no longer fit a
+//       block's shared memory, nor the removed set a warp's registers
+//       (8 words a lane). There nms_sweep_wide_kernel takes the place of
+//       (b): one block per image keeps the removed set in shared memory
+//       (8 W bytes: 2.5 KB at K = 20,000) and reads the mask where
+//       (a) left it, in device memory and mostly in L2. For tile r, 64
+//       threads load the tile's diagonal words, one thread runs the
+//       64-step chain on them in registers, and then every thread takes
+//       columns w > r of the tile, 256 at a time (a column chunk), and
+//       ORs in the words of the tile's kept rows only: consecutive
+//       threads read consecutive words of a row, and a row that was not
+//       kept is not read at all. Each column has one writer, so nothing
+//       needs atomics, and the keep set is the ring's bit for bit.
 //
 // What bounds it: the sweep's chain, K steps of a few dependent ALU
 // operations on one SM per image; the mask is B * K^2 / 2 IoUs spread
@@ -255,6 +268,87 @@ __global__ void __launch_bounds__(32) nms_sweep_kernel(
     }
 }
 
+// One block per image: the removed set in shared memory, the mask read
+// from device memory (K > 14,464, where the ring of (b) does not fit).
+constexpr int kWideThreads = 256;
+
+__global__ void __launch_bounds__(kWideThreads) nms_sweep_wide_kernel(
+    const u64* __restrict__ mask,       // [B, 64 W, W] from nms_mask_kernel
+    const uint8_t* __restrict__ valid,  // [B, K] or nullptr: all valid
+    uint8_t* __restrict__ keep,         // [B, K] out, 0/1
+    int k, int words)
+{
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    u64* rem = reinterpret_cast<u64*>(smem_raw);  // [W] removed set
+    __shared__ u64 diag[kTile];
+    __shared__ u64 kept_s;
+    const int tid = threadIdx.x;
+    const size_t row_words = static_cast<size_t>(words);
+    const u64* gmask = mask + static_cast<size_t>(blockIdx.x) * kTile * row_words * row_words;
+    const size_t base = static_cast<size_t>(blockIdx.x) * k;
+
+    // removed := not valid, and every bit past K
+    for (int w = tid; w < words; w += kWideThreads) {
+        u64 word = 0;
+        for (int b = 0; b < kTile; ++b) {
+            const int j = w * kTile + b;
+            const bool gone = j >= k || (valid != nullptr && valid[base + j] == 0);
+            word |= static_cast<u64>(gone) << b;
+        }
+        rem[w] = word;
+    }
+    __syncthreads();
+
+    // the next tile's diagonal words are loaded while this tile is swept
+    u64 dnext = tid < kTile ? gmask[static_cast<size_t>(tid) * row_words] : 0ull;
+    for (int r = 0; r < words; ++r) {
+        const u64* tile = gmask + static_cast<size_t>(r) * kTile * row_words;
+        if (tid < kTile) diag[tid] = dnext;
+        __syncthreads();  // the diagonal, and rem[r] from the tiles before
+        if (tid == 0) {
+            u64 d[kTile];
+#pragma unroll
+            for (int b = 0; b < kTile; ++b) d[b] = diag[b];
+            u64 cur = rem[r], kept = 0;
+#pragma unroll
+            for (int b = 0; b < kTile; ++b) {
+                if (((cur >> b) & 1ull) == 0) {
+                    kept |= 1ull << b;
+                    cur |= d[b];
+                }
+            }
+            kept_s = kept;
+        }
+        __syncthreads();
+        const u64 kept = kept_s;
+        if (tid < kTile && r + 1 < words)
+            dnext = tile[(kTile + static_cast<size_t>(tid)) * row_words + r + 1];
+        if (tid < kTile && r * kTile + tid < k)
+            keep[base + r * kTile + tid] = static_cast<uint8_t>((kept >> tid) & 1ull);
+        // the kept rows remove what they overlap among the later words, a
+        // chunk of kWideThreads columns at a time; eight loads in flight
+        for (int w = r + 1 + tid; w < words; w += kWideThreads) {
+            u64 acc = 0ull;
+            u64 rows = kept;
+            while (rows != 0ull) {
+                u64 v[8];
+#pragma unroll
+                for (int q = 0; q < 8; ++q) {
+                    v[q] = 0ull;
+                    if (rows != 0ull) {
+                        const int b = __ffsll(static_cast<long long>(rows)) - 1;
+                        rows &= rows - 1;
+                        v[q] = tile[static_cast<size_t>(b) * row_words + w];
+                    }
+                }
+#pragma unroll
+                for (int q = 0; q < 8; ++q) acc |= v[q];
+            }
+            rem[w] |= acc;
+        }
+    }
+}
+
 cudaError_t launch_mask(const void* boxes, const void* classes, void* mask,
                         int batch, int k, float iou_thresh, cudaStream_t stream)
 {
@@ -284,6 +378,22 @@ cudaError_t launch_sweep(const void* mask, const void* valid, void* keep,
     return cudaGetLastError();
 }
 
+cudaError_t launch_sweep_wide(const void* mask, const void* valid, void* keep,
+                              int batch, int k, int words, cudaStream_t stream)
+{
+    const size_t smem = static_cast<size_t>(words) * 8;
+    if (smem > 48 * 1024) {
+        cudaError_t e = cudaFuncSetAttribute(
+            nms_sweep_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            static_cast<int>(smem));
+        if (e != cudaSuccess) return e;
+    }
+    nms_sweep_wide_kernel<<<batch, kWideThreads, smem, stream>>>(
+        static_cast<const u64*>(mask), static_cast<const uint8_t*>(valid),
+        static_cast<uint8_t*>(keep), k, words);
+    return cudaGetLastError();
+}
+
 }  // namespace
 
 // The mask alone, [B, 64 W, W] words (upper-triangle tiles written; the
@@ -298,9 +408,11 @@ extern "C" int detectax_nms_mask(
 }
 
 // Mask then sweep, both on `stream`; `mask` is scratch of B * 64 W * W
-// words, `stages` tiles of 64 W words fit the ring (the wrapper's plan).
-// Allocates nothing and does not synchronise. Returns the cudaError_t of
-// the first launch that failed (0 = success).
+// words. `stages` > 0: tiles of 64 W words that fit the ring of
+// nms_sweep_kernel (the wrapper's plan); 0: the wide sweep, the removed
+// set of W words in shared memory. Allocates nothing and does not
+// synchronise. Returns the cudaError_t of the first launch that failed
+// (0 = success).
 extern "C" int detectax_nms_sweep(
     const void* boxes, const void* classes, const void* valid, void* mask,
     void* keep, int batch, int k, float iou_thresh, int stages, void* stream)
@@ -310,7 +422,8 @@ extern "C" int detectax_nms_sweep(
     if (e != cudaSuccess) return static_cast<int>(e);
     const int words = (k + kTile - 1) / kTile;
     const int slots = (words + 31) / 32;
-    if (slots <= 1) e = launch_sweep<1>(mask, valid, keep, batch, k, words, stages, st);
+    if (stages == 0) e = launch_sweep_wide(mask, valid, keep, batch, k, words, st);
+    else if (slots <= 1) e = launch_sweep<1>(mask, valid, keep, batch, k, words, stages, st);
     else if (slots <= 2) e = launch_sweep<2>(mask, valid, keep, batch, k, words, stages, st);
     else if (slots <= 4) e = launch_sweep<4>(mask, valid, keep, batch, k, words, stages, st);
     else if (slots <= kMaxSlots) e = launch_sweep<8>(mask, valid, keep, batch, k, words, stages, st);

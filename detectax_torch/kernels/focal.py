@@ -15,8 +15,10 @@ Bound by bytes (8-12 in and, backward, 4 out an element against a few
 dozen float operations), and at the training shapes — a few MB a step —
 by the latency of a launch, hence one launch each way for all segments.
 The source says what the design does about it. Sums are formed without
-atomics on floats, in an order that depends on the segments' sizes alone
-(`_focal_plan`), so two runs on the same input give the same bits.
+atomics on floats, in an order that depends on the segments' (rows, cols)
+alone — the grid (`_focal_plan`) and the walk that hands elements to
+threads (`_walk_unit`, modelled by `focal_walk_plain`) — so the same values
+give the same bits whatever their strides and alignment, run after run.
 
 Layout: labels and logits are read where they lie. A tensor whose last
 dimension has unit stride and whose leading dimensions collapse onto one
@@ -24,7 +26,9 @@ row stride (a contiguous tensor, or the class channels ``y[..., 5:]`` of a
 contiguous map) is handed to the kernel as ``[rows, cols]`` with that row
 stride; any other layout is made contiguous first. ``weights`` is broadcast
 to the logits' shape and made contiguous (one float an element). A segment
-whose columns, strides and pointers allow it is read 16 bytes at a time.
+whose columns are a multiple of 4 is walked four floats a thread at a
+time, read with 16-byte loads where every pointer and row stride allows,
+else with 4-byte loads of the same floats in the same order.
 
 Beside the wrappers stand the plain versions: `focal_loss_plain` (the
 formula of `detectax_torch.ops.losses.focal_loss`, gradient by autograd),
@@ -170,13 +174,60 @@ def _prepare(labels, logits, weights) -> _Segment:
     return _Segment(z, z_stride, x, x_stride, w, rows, cols)
 
 
-def _reads_16_bytes(seg: _Segment, dlogits: torch.Tensor | None) -> bool:
-    """Whether every row of the segment starts on 16 bytes in every tensor
-    the kernel touches, so that it can move four floats at once."""
+# how csrc/focal.cu walks a segment (kScalar, kQuad16, kQuad4)
+_SCALAR, _QUAD16, _QUAD4 = 0, 1, 2
+
+
+def _walk_unit(cols: int) -> int:
+    """Floats a thread takes at a time: 4 when ``cols`` is a multiple of
+    4, else 1. A function of ``cols`` alone, so the order of every sum is
+    too."""
+    return 4 if cols % 4 == 0 else 1
+
+
+def _walk_mode(seg: _Segment, dlogits: torch.Tensor | None) -> int:
+    """The kernel's walk of the segment: one float a unit, or four read by
+    one 16-byte load where every row of every tensor the kernel touches
+    starts on 16 bytes, else four read by 4-byte loads."""
+    if _walk_unit(seg.cols) == 1:
+        return _SCALAR
     ptrs = [seg.z.data_ptr(), seg.x.data_ptr()]
     ptrs += [t.data_ptr() for t in (seg.w, dlogits) if t is not None]
-    return (seg.cols % 4 == 0 and seg.z_stride % 4 == 0
-            and seg.x_stride % 4 == 0 and all(p % 16 == 0 for p in ptrs))
+    aligned = (seg.z_stride % 4 == 0 and seg.x_stride % 4 == 0
+               and all(p % 16 == 0 for p in ptrs))
+    return _QUAD16 if aligned else _QUAD4
+
+
+def focal_walk_plain(rows: int, cols: int, mode: int) -> list[list[int]]:
+    """Plain model of the forward kernel's walk of one segment: for each
+    (block, thread) of the segment's blocks (`_focal_plan` of it alone),
+    the flat indices ``row * cols + col`` of the elements it adds, in the
+    order it adds them. ``mode`` is the walk (`_walk_mode`); the two quad
+    modes differ in the width of their loads only, so they give the same
+    lists. For tests of the order's independence of alignment."""
+    unit = 1 if mode == _SCALAR else 4
+    if mode != _SCALAR and cols % 4:
+        raise ValueError(f"a quad walk needs cols % 4 == 0, got {cols}")
+    (_, blocks, rows_per_block), = _focal_plan([(rows, cols)])
+    units = cols // unit
+    k_rows = 4 // unit
+    per_group = 1 if units >= THREADS else THREADS // units
+    order = []
+    for b in range(blocks):
+        r0, r1 = b * rows_per_block, min((b + 1) * rows_per_block, rows)
+        for t in range(THREADS):
+            dr, c0 = divmod(t, units)
+            seq = []
+            if dr < per_group:
+                for c in range(c0, units, THREADS):
+                    for base in range(r0 + dr, r1, k_rows * per_group):
+                        for k in range(k_rows):
+                            row = base + k * per_group
+                            if row < r1:
+                                seq += [row * cols + c * unit + e
+                                        for e in range(unit)]
+            order.append(seq)
+    return order
 
 
 def _table(segs: Sequence[_Segment], dlogits=None):
@@ -187,7 +238,7 @@ def _table(segs: Sequence[_Segment], dlogits=None):
     desc, ptrs = [], []
     for seg, d, (first, blocks, rows_per_block) in zip(segs, dlogits, plan):
         desc += [seg.z_stride, seg.x_stride, seg.rows, seg.cols,
-                 int(_reads_16_bytes(seg, d)), first, blocks, rows_per_block]
+                 _walk_mode(seg, d), first, blocks, rows_per_block]
         ptrs += [seg.z.data_ptr(), seg.x.data_ptr(),
                  None if seg.w is None else seg.w.data_ptr(),
                  None if d is None else d.data_ptr()]

@@ -23,7 +23,17 @@ the batch; `suppression_bits_plain` and `sweep_bits_plain` are the plain
 model of the sweep's two launches. A wrapper takes the plain version only
 for a tensor on the CPU; for a CUDA tensor it launches the kernel or
 raises. `_sweep_plan` and `_dense_plan` are the launch shapes, pure
-functions of K and M.
+functions of K and M, each in tiers with no upper bound of its own:
+
+* `nms_sweep` up to K = 14,464 runs the ring sweep (two or more 64-row
+  tiles of the mask in shared memory, the removed set in a warp's
+  registers); above, the wide sweep (one block an image, the removed set
+  in shared memory, the mask read from device memory). The scratch mask is
+  K^2 / 8 bytes an image, and only its allocation limits K.
+* `dense_nms` up to M = 65,536 holds an image's candidates in the
+  registers of one cluster; up to about 144,000 it stages them in the
+  cluster's shared memory (24 bytes a candidate); above, it reads them
+  from device memory, with the live scores in [B, M] floats of scratch.
 
 Every function takes a leading batch dimension; an unbatched input
 (``[K, 4]``) is accepted and returned unbatched.
@@ -58,6 +68,13 @@ _DENSE_CLUSTERS = ((12288, 8), (_DENSE_MAX_CLUSTER * _DENSE_MAX_THREADS
 # parities, and their two mbarriers
 _DENSE_STATIC_SMEM = (2 * _DENSE_MAX_CLUSTER * (_DENSE_MAX_THREADS // 32)
                       * 32 + 2 * _MBAR_BYTES)
+# above the register tier: a candidate staged in shared memory is its box,
+# live score and class
+_DENSE_STAGED_BYTES = 24
+# the wide sweep: the removed set of W words in shared memory beside the
+# diagonal words of a tile and the kept word
+_SWEEP_WIDE_THREADS = 256
+_SWEEP_WIDE_STATIC_SMEM = _TILE * 8 + 8
 
 
 @functools.cache
@@ -72,6 +89,9 @@ def load_kernels() -> ctypes.CDLL:
     lib.detectax_dense_nms.argtypes = [p, p, p, p, p, p, p,
                                        i, i, i, f, f, i, i, i, i, p]
     lib.detectax_dense_nms.restype = i
+    lib.detectax_dense_nms_mem.argtypes = [p, p, p, p, p, p, p, p,
+                                           i, i, i, f, f, i, i, i, i, p]
+    lib.detectax_dense_nms_mem.restype = i
     return lib
 
 
@@ -81,45 +101,75 @@ def _words(k: int) -> int:
 
 def _sweep_plan(k: int) -> dict:
     """Launch shape of `nms_sweep` for K boxes an image: the mask's grid
-    (``tiles`` of 64 x 64 an image, 128 threads each), the sweep's warp and
-    the ring of ``stages`` row tiles of ``tile_bytes`` in shared memory.
-    Raises where two stages no longer fit a block (K > 14,464)."""
+    (``tiles`` of 64 x 64 an image, 128 threads each), then the sweep.
+
+    ``tier="ring"`` (K <= 14,464): one warp an image, a ring of ``stages``
+    row tiles of ``tile_bytes`` in shared memory, the removed set in
+    ``slots`` registers a lane. ``tier="wide"`` (above): one block of 256
+    threads an image, the removed set of ``words`` words in shared memory
+    and the mask read from device memory. Raises for K < 1 only: the wide
+    tier's shared memory holds the removed set up to K = 1,855,360, whose
+    scratch of K^2 / 8 bytes (430 GB) no card holds."""
+    if k < 1:
+        raise ValueError(f"nms_sweep needs K >= 1 boxes an image, got {k}")
     words = _words(k)
     tile_bytes = _TILE * words * 8
     stages = min(words, _SWEEP_MAX_STAGES,
                  _MAX_SMEM // (tile_bytes + _MBAR_BYTES))
     slots = -(-words // 32)
-    if k < 1 or stages < min(words, 2) or slots > _SWEEP_MAX_SLOTS:
-        raise ValueError(
-            f"nms_sweep streams 64-row tiles of the [K, ceil(K/64)] mask "
-            f"through a ring of at least two stages in one block's shared "
-            f"memory ({_MAX_SMEM} bytes): K={k} is outside 1..14464")
-    return {
-        "words": words, "slots": slots,
-        "tiles": words * (words + 1) // 2, "mask_threads": 2 * _TILE,
-        "sweep_threads": 32, "stages": stages, "tile_bytes": tile_bytes,
-        "smem_bytes": stages * (tile_bytes + _MBAR_BYTES),
+    plan = {
+        "words": words, "tiles": words * (words + 1) // 2,
+        "mask_threads": 2 * _TILE,
         "mask_bytes": _TILE * words * words * 8,  # an image's scratch
     }
+    if stages >= min(words, 2) and slots <= _SWEEP_MAX_SLOTS:
+        plan.update(tier="ring", slots=slots, sweep_threads=32,
+                    stages=stages, tile_bytes=tile_bytes,
+                    smem_bytes=stages * (tile_bytes + _MBAR_BYTES))
+        return plan
+    smem = words * 8
+    if smem + _SWEEP_WIDE_STATIC_SMEM > _MAX_SMEM:
+        raise ValueError(
+            f"nms_sweep keeps the removed set of ceil(K/64) words in one "
+            f"block's shared memory: K={k} needs {smem} bytes beside "
+            f"{plan['mask_bytes']} bytes of scratch an image")
+    plan.update(tier="wide", sweep_threads=_SWEEP_WIDE_THREADS, stages=0,
+                smem_bytes=smem)
+    return plan
 
 
 def _dense_plan(m: int) -> dict:
     """Launch shape of `dense_nms` for M candidates an image: ``cluster``
-    blocks of ``threads`` threads, each thread holding ``per`` candidates
-    of its block's contiguous ``slice``. Raises above 65,536."""
+    blocks of ``threads`` threads, each block over a contiguous ``slice``
+    of ceil(M / cluster) candidates, each thread over ``per`` of them.
+
+    ``tier="registers"`` (M <= 65,536): a thread holds its candidates in
+    registers, ``per`` in {1, 2, 4, 8}. ``tier="shared"``: 16 blocks of 512
+    threads stage their slices in ``smem_bytes`` of shared memory (24 bytes
+    a candidate, up to about 144,000 an image). ``tier="device"`` (above):
+    the same blocks read their slices from device memory, the live scores
+    in scratch. Raises for M < 1 only."""
+    if m < 1:
+        raise ValueError(f"dense_nms needs M >= 1 candidates an image, "
+                         f"got {m}")
     cluster = next((c for top, c in _DENSE_CLUSTERS if m <= top), None)
-    if m < 1 or cluster is None:
-        raise ValueError(
-            f"dense_nms holds an image's candidates in the registers of one "
-            f"cluster of at most {_DENSE_MAX_CLUSTER} blocks: M={m} is "
-            f"outside 1..{_DENSE_CLUSTERS[-1][0]}")
-    slice_ = -(-m // cluster)
-    for per in _DENSE_PER:
-        threads = max(32, _common.round_up(-(-slice_ // per), 32))
-        if threads <= _DENSE_MAX_THREADS:
-            break
-    return {"cluster": cluster, "slice": slice_, "per": per,
-            "threads": threads, "smem_bytes": _DENSE_STATIC_SMEM}
+    if cluster is not None:
+        slice_ = -(-m // cluster)
+        for per in _DENSE_PER:
+            threads = max(32, _common.round_up(-(-slice_ // per), 32))
+            if threads <= _DENSE_MAX_THREADS:
+                break
+        return {"tier": "registers", "cluster": cluster, "slice": slice_,
+                "per": per, "threads": threads,
+                "smem_bytes": _DENSE_STATIC_SMEM}
+    slice_ = -(-m // _DENSE_MAX_CLUSTER)
+    staged = _DENSE_STATIC_SMEM + _DENSE_STAGED_BYTES * slice_
+    shared = staged <= _MAX_SMEM
+    return {"tier": "shared" if shared else "device",
+            "cluster": _DENSE_MAX_CLUSTER, "slice": slice_,
+            "per": -(-slice_ // _DENSE_MAX_THREADS),
+            "threads": _DENSE_MAX_THREADS,
+            "smem_bytes": staged if shared else _DENSE_STATIC_SMEM}
 
 
 def _same_device(ref: torch.Tensor, **tensors) -> None:
@@ -285,7 +335,7 @@ def nms_sweep(
     classes: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Keep mask (bool ``[B, K]``) for score-descending corner boxes
-    ``[B, K, 4]``, 1 <= K <= 14,464.
+    ``[B, K, 4]``, any K (`_sweep_plan`'s tiers).
 
     ``classes`` (int ``[B, K]``): when given, suppression only acts between
     same-class candidates. ``valid`` (bool ``[B, K]``): padding that neither
@@ -298,7 +348,6 @@ def nms_sweep(
     _same_device(boxes, valid=valid, classes=classes)
     squeeze, (b, v, c) = _batched(boxes, valid, classes)
     batch, k = b.shape[:2]
-    plan = _sweep_plan(k) if k else None
     keep = torch.empty((batch, k), dtype=torch.bool, device=b.device)
     if batch == 0 or k == 0:
         return keep[0] if squeeze else keep
@@ -307,9 +356,11 @@ def nms_sweep(
     v = None if v is None else v.to(torch.bool).contiguous()
     if b.data_ptr() % 16:
         raise ValueError("boxes storage must be 16-byte aligned")
-    words = plan["words"]
+    words = _words(k)
+    # the scratch first: past what a card holds, its allocation raises
     mask = torch.empty((batch, _TILE * words, words), dtype=torch.int64,
                        device=b.device)
+    plan = _sweep_plan(k)
     lib = load_kernels()
     with torch.cuda.device(b.device):
         code = lib.detectax_nms_sweep(
@@ -416,7 +467,8 @@ def dense_nms(
     (boxes/scores/classes/valid ``[B, max_outputs]`` + num_valid),
     survivors in pick (score) order. On a CUDA tensor this launches the
     CUDA kernel, one cluster of blocks an image as `_dense_plan` sizes it
-    (M <= 65,536); on a CPU tensor it runs `dense_nms_plain`.
+    (any M: the candidates in registers, shared memory or device memory);
+    on a CPU tensor it runs `dense_nms_plain`.
     """
     kw = dict(iou_thresh=iou_thresh, score_thresh=score_thresh,
               max_outputs=max_outputs, class_aware=class_aware)
@@ -447,16 +499,21 @@ def dense_nms(
     if b.data_ptr() % 16 or ob.data_ptr() % 16:
         raise ValueError("boxes storage must be 16-byte aligned")
     lib = load_kernels()
-    with torch.cuda.device(dev):
-        code = lib.detectax_dense_nms(
-            b.data_ptr(), s.data_ptr(),
-            None if c is None else c.data_ptr(),
-            ob.data_ptr(), os_.data_ptr(), oc.data_ptr(), ov.data_ptr(),
+    common = (b.data_ptr(), s.data_ptr(), None if c is None else c.data_ptr())
+    outs = (ob.data_ptr(), os_.data_ptr(), oc.data_ptr(), ov.data_ptr(),
             batch, m, int(max_outputs), float(iou_thresh),
             float(score_thresh), int(bool(class_aware)),
-            plan["cluster"], plan["threads"], plan["per"],
-            torch.cuda.current_stream().cuda_stream,
-        )
+            plan["cluster"], plan["threads"])
+    live = (torch.empty((batch, m), dtype=torch.float32, device=dev)
+            if plan["tier"] == "device" else None)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        if plan["tier"] == "registers":
+            code = lib.detectax_dense_nms(*common, *outs, plan["per"], stream)
+        else:
+            code = lib.detectax_dense_nms_mem(
+                *common, None if live is None else live.data_ptr(), *outs,
+                int(plan["tier"] == "shared"), stream)
     _common.check_launch(code, "dense_nms")
     _common.count_launch("dense_nms")
     return _detections(ob, os_, oc, ov, squeeze)

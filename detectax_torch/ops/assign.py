@@ -1,10 +1,12 @@
 """Label assignment — on the device, fixed shapes, batched.
 
-Port of `detectax/ops/assign.py`'s FCOS all-in-box assignment
-(`fcos_assign`, `fcos_assign_level` and their helpers) and of the two
-assigners of the ResNet-backbone CenterNet family
-(`centernet_scale_slot_assign`, `centernet_heatmap_assign`); the other
-assigners of that file are not ported yet. Each is a broadcast-and-reduce
+Port of `detectax/ops/assign.py`'s FCOS assigners — all-in-box
+(`fcos_assign`), 3x3 center sampling (`fcos_center_assign`) and the
+centroid-only offset+scale variant (`fcos_center_v1_assign`), each with
+its one-level function and the helpers — and of the two assigners of the
+ResNet-backbone CenterNet family (`centernet_scale_slot_assign`,
+`centernet_heatmap_assign`); the other assigners of that file are not
+ported yet. Each is a broadcast-and-reduce
 over a padded ground-truth array. The JAX package writes the assignment
 for one image and maps it over the batch; here the batch dimension is
 written out, so every function takes a whole padded batch.
@@ -133,6 +135,18 @@ def _smallest_owner(cover: torch.Tensor, area: torch.Tensor):
     return _first_argmax(neg_area), cover.any(dim=-1)
 
 
+def _one_hot(gt_labels: torch.Tensor, num_classes: int) -> torch.Tensor:
+    return torch.nn.functional.one_hot(
+        gt_labels.to(torch.int64), num_classes).to(torch.float32)
+
+
+def _check_batch(gt_yxhw: torch.Tensor) -> None:
+    if gt_yxhw.ndim != 3 or gt_yxhw.shape[-1] != 4:
+        raise ValueError(
+            f"gt_yxhw must be a padded batch [B, N, 4], got "
+            f"{tuple(gt_yxhw.shape)}")
+
+
 def fcos_assign_level(
     gt_yxhw: torch.Tensor,
     gt_labels: torch.Tensor,
@@ -190,8 +204,7 @@ def fcos_assign_level(
 
     gy = (torch.arange(hm, dtype=torch.float32, device=dev) + 0.5)[:, None]
     gx = (torch.arange(wm, dtype=torch.float32, device=dev) + 0.5)[None, :]
-    one_hot = torch.nn.functional.one_hot(
-        gt_labels.to(torch.int64), num_classes).to(torch.float32)
+    one_hot = _one_hot(gt_labels, num_classes)
     (y_lo_o, x_lo_o, y_hi_o, x_hi_o, deg_y_o, deg_x_o, y_cen_o, x_cen_o,
      cls) = _select_rows(
         owner, y_lo_px, x_lo_px, y_hi_px, x_hi_px, deg_y, deg_x,
@@ -235,10 +248,7 @@ def fcos_assign(
 ):
     """Full 5-level FCOS assignment of a padded batch. Returns (tuple of
     maps ``[B, hm, wm, 5+nc]``, ``[B, L]`` n_targets)."""
-    if gt_yxhw.ndim != 3 or gt_yxhw.shape[-1] != 4:
-        raise ValueError(
-            f"gt_yxhw must be a padded batch [B, N, 4], got "
-            f"{tuple(gt_yxhw.shape)}")
+    _check_batch(gt_yxhw)
     img_pad = img_pad or img_dim
     outs, counts = [], []
     for (lo, hi), stride in zip(_bin_bounds(b_dim, len(strides)), strides):
@@ -246,6 +256,207 @@ def fcos_assign(
             gt_yxhw, gt_labels, gt_valid,
             img_dim=img_dim, img_pad=img_pad, num_classes=num_classes,
             stride=stride, bin_lo=lo, bin_hi=hi,
+        )
+        outs.append(o)
+        counts.append(n)
+    return tuple(outs), torch.stack(counts, dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# FCOS-center: 3x3 (or centroid-only) center sampling
+# ---------------------------------------------------------------------------
+
+
+def fcos_center_assign_level(
+    gt_yxhw: torch.Tensor,
+    gt_labels: torch.Tensor,
+    gt_valid: torch.Tensor,
+    *,
+    img_dim: tuple,
+    img_pad: tuple,
+    num_classes: int,
+    stride: int,
+    bin_lo: float,
+    bin_hi: float,
+    center_only: bool = False,
+):
+    """One level of 3x3 (or centroid-only) center-sampling assignment for
+    a padded batch: center cell at ``int(c * ratio + 0.5)``, neighbourhood
+    scores 1.0 (centre) / 0.5 (edge) / 0.25 (diagonal), the higher score
+    taking the centerness channel; unclamped ltrb offsets and the one-hot
+    class of the smallest covering box at each covered cell.
+
+    Returns ``([B, hm, wm, 5+nc], n_targets [B])``, layout
+    ``[t, b, l, r, cen, one_hot]``."""
+    dev = gt_yxhw.device
+    gt_yxhw = gt_yxhw.to(torch.float32)
+    hm = int(img_pad[0]) // stride
+    wm = int(img_pad[1]) // stride
+    h_ratio = img_dim[0] / stride
+    w_ratio = img_dim[1] / stride
+    cy, cx, sh, sw = gt_yxhw.unbind(-1)  # [B, N] each
+
+    _, _, bh, bw = _gt_pixels(gt_yxhw, img_dim)
+    max_side = torch.maximum(bh, bw)
+    in_bin = gt_valid.to(torch.bool) & (max_side >= bin_lo) \
+        & (max_side < bin_hi)
+
+    y_lo_px = (cy - 0.5 * sh) * img_dim[0]
+    x_lo_px = (cx - 0.5 * sw) * img_dim[1]
+    y_hi_px = (cy + 0.5 * sh) * img_dim[0]
+    x_hi_px = (cx + 0.5 * sw) * img_dim[1]
+
+    y_cen_c = _trunc_int(cy * h_ratio + 0.5)
+    x_cen_c = _trunc_int(cx * w_ratio + 0.5)
+    jy = torch.arange(hm, dtype=torch.int32, device=dev)
+    jx = torch.arange(wm, dtype=torch.int32, device=dev)
+    ady = (jy[None, :, None] - y_cen_c[:, None, :]).abs()  # [B, hm, N]
+    adx = (jx[None, :, None] - x_cen_c[:, None, :]).abs()  # [B, wm, N]
+    reach = 0 if center_only else 1
+    cover = (
+        (ady <= reach)[:, :, None, :] & (adx <= reach)[:, None, :, :]
+        & in_bin[:, None, None, :]
+    )  # [B, hm, wm, N]
+
+    # centre score per (cell, box)
+    ady = ady[:, :, None, :]
+    adx = adx[:, None, :, :]
+    score = torch.where(
+        (ady == 0) & (adx == 0), 1.0,
+        torch.where((ady == 1) & (adx == 1), 0.25, 0.5))
+    cen = torch.where(cover, score, 0.0).amax(dim=-1)
+
+    owner, has = _smallest_owner(cover, bh * bw)  # [B, hm, wm]
+    gy = (torch.arange(hm, dtype=torch.float32, device=dev) + 0.5)[:, None]
+    gx = (torch.arange(wm, dtype=torch.float32, device=dev) + 0.5)[None, :]
+    y_lo_o, x_lo_o, y_hi_o, x_hi_o, cls = _select_rows(
+        owner, y_lo_px, x_lo_px, y_hi_px, x_hi_px,
+        _one_hot(gt_labels, num_classes),
+    )
+    t = gy - y_lo_o / stride
+    b = y_hi_o / stride - gy
+    l = gx - x_lo_o / stride
+    r = x_hi_o / stride - gx
+
+    has_f = has[..., None].to(torch.float32)
+    out = torch.cat(
+        [torch.stack([t, b, l, r], dim=-1) * has_f, cen[..., None],
+         cls * has_f], dim=-1)
+    return out, in_bin.sum(dim=-1, dtype=torch.int32)
+
+
+def fcos_center_assign(
+    gt_yxhw: torch.Tensor,
+    gt_labels: torch.Tensor,
+    gt_valid: torch.Tensor,
+    *,
+    img_dim: tuple,
+    img_pad: tuple | None = None,
+    num_classes: int,
+    strides: Sequence[int] = FCOS_STRIDES,
+    b_dim: Sequence[float] = FCOS_BIN_EDGES,
+    center_only: bool = False,
+):
+    """5-level center-sampling assignment of a padded batch. Returns
+    (tuple of maps ``[B, hm, wm, 5+nc]``, ``[B, L]`` n_targets)."""
+    _check_batch(gt_yxhw)
+    img_pad = img_pad or img_dim
+    outs, counts = [], []
+    for (lo, hi), stride in zip(_bin_bounds(b_dim, len(strides)), strides):
+        o, n = fcos_center_assign_level(
+            gt_yxhw, gt_labels, gt_valid,
+            img_dim=img_dim, img_pad=img_pad, num_classes=num_classes,
+            stride=stride, bin_lo=lo, bin_hi=hi, center_only=center_only,
+        )
+        outs.append(o)
+        counts.append(n)
+    return tuple(outs), torch.stack(counts, dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# FCOS-center v1: centroid-only offset+scale
+# ---------------------------------------------------------------------------
+
+
+def fcos_center_v1_assign_level(
+    gt_yxhw: torch.Tensor,
+    gt_labels: torch.Tensor,
+    gt_valid: torch.Tensor,
+    *,
+    img_dim: tuple,
+    img_pad: tuple,
+    num_classes: int,
+    stride: int,
+    bin_lo: float,
+    bin_hi: float,
+    box_scale: float,
+):
+    """One level of YOLO-style centroid-only assignment for a padded
+    batch: at the centroid cell (``int(c_px / stride)``) the regression
+    ``(y_off, x_off, h / box_scale, w / box_scale)``, centerness 1 and the
+    one-hot class of the smallest box there.
+
+    Returns ``([B, hm, wm, 5+nc], n_targets [B])``, layout
+    ``[y_off, x_off, h_sc, w_sc, cen, one_hot]``."""
+    dev = gt_yxhw.device
+    gt_yxhw = gt_yxhw.to(torch.float32)
+    hm = int(img_pad[0]) // stride
+    wm = int(img_pad[1]) // stride
+
+    y_c, x_c, bh, bw = _gt_pixels(gt_yxhw, img_dim)
+    max_side = torch.maximum(bh, bw)
+    in_bin = gt_valid.to(torch.bool) & (max_side >= bin_lo) \
+        & (max_side < bin_hi)
+    y_cell = _trunc_int(y_c / stride)
+    x_cell = _trunc_int(x_c / stride)
+    in_map = (y_cell >= 0) & (y_cell < hm) & (x_cell >= 0) & (x_cell < wm)
+    in_bin = in_bin & in_map
+
+    y_off = (y_c - y_cell.to(torch.float32) * stride) / stride
+    x_off = (x_c - x_cell.to(torch.float32) * stride) / stride
+    reg = torch.stack([y_off, x_off, bh / box_scale, bw / box_scale], dim=-1)
+
+    jy = torch.arange(hm, dtype=torch.int32, device=dev)
+    jx = torch.arange(wm, dtype=torch.int32, device=dev)
+    cover = (
+        (jy[None, :, None, None] == y_cell[:, None, None, :])
+        & (jx[None, None, :, None] == x_cell[:, None, None, :])
+        & in_bin[:, None, None, :]
+    )  # [B, hm, wm, N]
+    owner, has = _smallest_owner(cover, bh * bw)
+    reg_o, cls = _select_rows(owner, reg, _one_hot(gt_labels, num_classes))
+    has_f = has[..., None].to(torch.float32)
+    out = torch.cat([reg_o * has_f, has_f, cls * has_f], dim=-1)
+    return out, in_bin.sum(dim=-1, dtype=torch.int32)
+
+
+def fcos_center_v1_assign(
+    gt_yxhw: torch.Tensor,
+    gt_labels: torch.Tensor,
+    gt_valid: torch.Tensor,
+    *,
+    img_dim: tuple,
+    img_pad: tuple | None = None,
+    num_classes: int,
+    strides: Sequence[int] = FCOS_STRIDES,
+    b_dim: Sequence[float] = FCOS_BIN_EDGES,
+    box_scales: Sequence[float] | None = None,
+):
+    """5-level centroid-only assignment of a padded batch. Per-level
+    ``box_scales`` default to ``b_dim + [max(img_dim)]``. Returns (tuple
+    of maps ``[B, hm, wm, 5+nc]``, ``[B, L]`` n_targets)."""
+    _check_batch(gt_yxhw)
+    img_pad = img_pad or img_dim
+    if box_scales is None:
+        box_scales = list(b_dim) + [float(max(img_dim))]
+    outs, counts = [], []
+    for (lo, hi), stride, sc in zip(
+        _bin_bounds(b_dim, len(strides)), strides, box_scales
+    ):
+        o, n = fcos_center_v1_assign_level(
+            gt_yxhw, gt_labels, gt_valid,
+            img_dim=img_dim, img_pad=img_pad, num_classes=num_classes,
+            stride=stride, bin_lo=lo, bin_hi=hi, box_scale=float(sc),
         )
         outs.append(o)
         counts.append(n)
@@ -432,8 +643,7 @@ def centernet_heatmap_assign(
 
     gy = (torch.arange(hm, dtype=torch.float32, device=dev) + 0.5)[:, None]
     gx = (torch.arange(wm, dtype=torch.float32, device=dev) + 0.5)[None, :]
-    one_hot = torch.nn.functional.one_hot(
-        gt_labels.to(torch.int64), num_classes).to(torch.float32)
+    one_hot = _one_hot(gt_labels, num_classes)
     (y_lo_o, x_lo_o, y_hi_o, x_hi_o, mu_y, mu_x, area_o,
      cls) = _select_rows(
         owner, y_lo_px, x_lo_px, y_hi_px, x_hi_px,

@@ -29,10 +29,14 @@ runs can be compared leaf by leaf.
 The port's own weights file is numpy-only: an ``.npz`` keyed by the Flax
 path (``params/ResNet_0/stem/Conv_0/kernel``), written by `save_npz` and
 read by `load_npz`. A file written from the JAX package (its trees turned
-into numpy) is read by the port without JAX.
+into numpy) is read by the port without JAX. The JAX package's own
+weights files — Flax ``.msgpack``, such as a ported or crop-pretrained
+trunk — are read by `load_msgpack`, a decoder of the subset of MessagePack
+that `flax.serialization` writes, with no `flax` or `msgpack` package.
 """
 from __future__ import annotations
 
+import struct
 from typing import Mapping
 
 import numpy as np
@@ -279,3 +283,125 @@ def load_npz(path: str) -> tuple[dict, dict]:
                 tree = tree.setdefault(m, {})
             tree[leaf] = data[key]
     return trees["params"], trees["batch_stats"]
+
+
+# ---------------------------------------------------------------------------
+# Flax .msgpack
+# ---------------------------------------------------------------------------
+
+# the extension types `flax.serialization` gives numpy values
+_EXT_NDARRAY = 1
+_EXT_NPSCALAR = 3
+
+
+class _MsgpackReader:
+    """Decoder of the MessagePack that `flax.serialization.msgpack_serialize`
+    writes: maps, arrays, strings, binaries, nil, booleans, ints and
+    floats, and its extension types for numpy arrays (1) and numpy scalars
+    (3), each a packed ``(shape, dtype name, C-order bytes)``. Anything
+    else raises."""
+
+    def __init__(self, data: bytes):
+        self.data = memoryview(data)
+        self.pos = 0
+
+    def take(self, n: int) -> memoryview:
+        if self.pos + n > len(self.data):
+            raise ValueError("msgpack data ends inside a value")
+        out = self.data[self.pos:self.pos + n]
+        self.pos += n
+        return out
+
+    def unpack(self, fmt: str):
+        return struct.unpack(">" + fmt, self.take(struct.calcsize(fmt)))[0]
+
+    def value(self):
+        b = self.unpack("B")
+        if b <= 0x7F:
+            return b
+        if b >= 0xE0:
+            return b - 0x100
+        if 0x80 <= b <= 0x8F:
+            return self.map(b & 0x0F)
+        if 0x90 <= b <= 0x9F:
+            return [self.value() for _ in range(b & 0x0F)]
+        if 0xA0 <= b <= 0xBF:
+            return str(self.take(b & 0x1F), "utf-8")
+        simple = {0xC0: None, 0xC2: False, 0xC3: True}
+        if b in simple:
+            return simple[b]
+        sized = {0xC4: "B", 0xC5: "H", 0xC6: "I"}       # bin
+        if b in sized:
+            return bytes(self.take(self.unpack(sized[b])))
+        sized = {0xD9: "B", 0xDA: "H", 0xDB: "I"}       # str
+        if b in sized:
+            return str(self.take(self.unpack(sized[b])), "utf-8")
+        sized = {0xC7: "B", 0xC8: "H", 0xC9: "I"}       # ext
+        if b in sized:
+            n = self.unpack(sized[b])
+            return self.ext(self.unpack("b"), self.take(n))
+        if 0xD4 <= b <= 0xD8:                          # fixext
+            code = self.unpack("b")
+            return self.ext(code, self.take(1 << (b - 0xD4)))
+        numbers = {0xCA: "f", 0xCB: "d", 0xCC: "B", 0xCD: "H", 0xCE: "I",
+                   0xCF: "Q", 0xD0: "b", 0xD1: "h", 0xD2: "i", 0xD3: "q"}
+        if b in numbers:
+            return self.unpack(numbers[b])
+        if b in (0xDC, 0xDD):
+            n = self.unpack("H" if b == 0xDC else "I")
+            return [self.value() for _ in range(n)]
+        if b in (0xDE, 0xDF):
+            return self.map(self.unpack("H" if b == 0xDE else "I"))
+        raise ValueError(f"msgpack type byte 0x{b:02x} is not one that "
+                         "flax.serialization writes")
+
+    def map(self, n: int) -> dict:
+        out = {}
+        for _ in range(n):
+            key = self.value()
+            out[key] = self.value()
+        return out
+
+    def ext(self, code: int, payload: memoryview):
+        if code not in (_EXT_NDARRAY, _EXT_NPSCALAR):
+            raise ValueError(f"msgpack extension type {code} is not one "
+                             "that this reader decodes")
+        shape, dtype, buf = _MsgpackReader(payload).value()
+        try:
+            dtype = np.dtype(dtype)
+        except TypeError as e:
+            raise ValueError(f"array of dtype {dtype!r}: not a numpy "
+                             "dtype") from e
+        arr = np.frombuffer(buf, dtype=dtype).reshape(shape)
+        # a scalar travels as a 0-d array
+        return arr if code == _EXT_NDARRAY else arr[()]
+
+
+def read_msgpack(path: str):
+    """The tree a Flax ``.msgpack`` file holds (nested dicts of numpy
+    arrays and Python scalars), as `flax.serialization.msgpack_restore`
+    would give it."""
+    with open(path, "rb") as f:
+        reader = _MsgpackReader(f.read())
+    tree = reader.value()
+    if reader.pos != len(reader.data):
+        raise ValueError(f"{path}: {len(reader.data) - reader.pos} bytes "
+                         "follow the first msgpack value")
+    return tree
+
+
+def load_msgpack(path: str) -> tuple[dict, dict]:
+    """(params, batch_stats) of a Flax ``.msgpack`` weights file holding
+    the two trees under those names, as the JAX package writes them."""
+    tree = read_msgpack(path)
+    if not isinstance(tree, dict) or "params" not in tree:
+        raise KeyError(f"{path}: no 'params' tree at the top level")
+    return tree["params"], tree.get("batch_stats", {})
+
+
+def load_weights(path: str) -> tuple[dict, dict]:
+    """(params, batch_stats) from the port's ``.npz`` or a Flax
+    ``.msgpack``, by the file's extension."""
+    if path.endswith(".msgpack"):
+        return load_msgpack(path)
+    return load_npz(path)

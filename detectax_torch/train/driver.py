@@ -13,18 +13,20 @@ import os
 import time
 from typing import Callable
 
+import numpy as np
 import torch
 
 from detectax_torch.runtime import resolve_device, set_tf32
 from detectax_torch.tools.from_flax import (
     BACKBONE_FLAX_NAMES,
     from_flax,
-    load_npz,
+    load_weights,
 )
 from detectax_torch.train.checkpoint import CheckpointManager
 from detectax_torch.train.loop import (
     TrainState,
     create_train_state,
+    make_eval_forward,
     make_train_step,
 )
 from detectax_torch.train.metrics import (
@@ -75,14 +77,16 @@ class TrainConfig:
     max_to_keep: int = 1
     resume: bool = False
     out_dir: str = "outputs"
+    # the CLIs pass an eval hook that draws on display steps
+    dump_visuals: bool = False
     seed: int = 0
     # debugging / tracing
     profile_steps: tuple[int, int] | None = None  # (start, stop) step range
     debug_nans: bool = False
     # ship uint8 batches and normalize on-device (4x less H2D traffic)
     device_normalize: bool = True
-    # .npz of backbone weights (`tools.from_flax.save_npz`) to load into
-    # the fresh state before training
+    # backbone weights to load into the fresh state before training: the
+    # port's .npz (`tools.from_flax.save_npz`) or a Flax .msgpack
     init_backbone: str | None = None
     # torch device; None means CUDA, and there is no CPU fallback
     device: str | None = None
@@ -147,11 +151,13 @@ def _hand_over(item):
 
 
 def load_backbone_weights(state: TrainState, path: str) -> TrainState:
-    """Load backbone weights from the port's ``.npz`` into a fresh state:
-    replaces the backbone's parameters and BatchNorm statistics, leaving
-    FPN and heads at their fresh init. The file holds either the trunk's
-    own trees or a whole detector's (the trunk under its Flax name)."""
-    params, batch_stats = load_npz(path)
+    """Load backbone weights from the port's ``.npz`` or a Flax
+    ``.msgpack`` (the JAX package's ported or crop-pretrained trunks) into
+    a fresh state: replaces the backbone's parameters and BatchNorm
+    statistics, leaving FPN and heads at their fresh init. The file holds
+    either the trunk's own trees or a whole detector's (the trunk under its
+    Flax name)."""
+    params, batch_stats = load_weights(path)
     for name in BACKBONE_FLAX_NAMES:
         if name in params:
             params, batch_stats = params[name], batch_stats.get(name, {})
@@ -179,8 +185,15 @@ def fit(
     dataset,
     assign_fn: Callable,
     loss_fn: Callable,
+    *,
+    eval_hook: Callable | None = None,
 ) -> dict:
-    """Run training; returns the final metrics summary."""
+    """Run training; returns the final metrics summary.
+
+    ``eval_hook(step=, state=, forward=, batch=, out_dir=)`` is called on
+    display steps with the host batch (pixels normalized) and ``forward``,
+    the model's eval-mode forward without autograd
+    (`train.loop.make_eval_forward`)."""
     device = resolve_device(cfg.device)
     set_tf32(False)
     os.makedirs(cfg.out_dir, exist_ok=True)
@@ -223,6 +236,7 @@ def fit(
     loader = build_loader(cfg, dataset)
     meter = ThroughputMeter()
     meter.start()
+    eval_fwd = make_eval_forward(model) if eval_hook else None
 
     step = start_step
     last_metrics: dict = {}
@@ -230,7 +244,7 @@ def fit(
     t_start = time.time()
     with torch.autograd.set_detect_anomaly(cfg.debug_nans):
         try:
-            for device_batch, _ in _device_prefetch(loader, device):
+            for device_batch, batch in _device_prefetch(loader, device):
                 if step >= cfg.max_steps:
                     break
                 if cfg.profile_steps and step == cfg.profile_steps[0]:
@@ -251,6 +265,19 @@ def fit(
                                          metrics_host))
                     logger.log(step, metrics_host)
                     last_metrics = metrics_host
+                    if eval_hook is not None:
+                        hook_batch = batch
+                        if cfg.device_normalize:
+                            from detectax_torch.data.pipeline import (
+                                normalize_pixels,
+                            )
+
+                            hook_batch = dict(batch)
+                            hook_batch["images"] = normalize_pixels(
+                                batch["images"].astype(np.float32),
+                                cfg.normalize)
+                        eval_hook(step=step, state=state, forward=eval_fwd,
+                                  batch=hook_batch, out_dir=cfg.out_dir)
 
                 if step % cfg.step_save == 0 or step == cfg.max_steps:
                     ckpt.save(step, state)

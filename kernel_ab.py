@@ -15,7 +15,9 @@ and times, on the same seeded inputs:
   384 px, batch 16 (the class channels ``y[..., 5:]`` of ``[16, h, h, 25]``
   maps, read in place), forward and forward + backward: one
   `focal_loss_group` call where the tree has that entry, else five
-  `focal_loss` calls;
+  `focal_loss` calls; and the scale-slot model's class term, channels 4:
+  of a ``[16, 64, 64, 5, 24]`` map read in place, forward (one
+  `focal_loss` call);
 * `peak_mask_scores` and `peak_scores` at ``[8, 48, 48, 20]`` and
   ``[8, 64, 64, 20]``.
 
@@ -132,6 +134,14 @@ out["focal"] = [
     {"case": "five_levels_fwd", "grouped": grouped, "ms": fwd_ms},
     {"case": "five_levels_fwd_bwd", "grouped": grouped,
      "ms": queued_ms(fwd_bwd)}]
+shape = (16, 64, 64, 5, 24)
+zs = torch.from_numpy((frng.uniform(size=shape) < 0.01)
+                      .astype(np.float32)).to(dev)[..., 4:]
+xs5 = torch.from_numpy((4.0 * frng.standard_normal(size=shape))
+                       .astype(np.float32)).to(dev)[..., 4:]
+with torch.no_grad():
+    out["focal"].append({"case": "slots_fwd", "grouped": False,
+                         "ms": queued_ms(lambda: KF.focal_loss(zs, xs5))})
 out["peak"] = []
 prng = np.random.default_rng(2)
 for shape in peak_shapes:

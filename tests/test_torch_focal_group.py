@@ -273,13 +273,16 @@ def test_focal_plan_of_the_fcos_step():
 
 def test_segment_table_reads_16_bytes_where_it_can():
     """The table handed to the C side: S8's class channels 4: of 24 are
-    read 16 bytes at a time; FCOS's 5: of 25 and CenterNet's 5: of 26 are
-    not; a weight mask is broadcast and made contiguous."""
+    walked four floats a thread and read 16 bytes at a time; FCOS's 5: of
+    25 are walked four floats a thread too (20 columns) but read 4 bytes
+    at a time (a row stride of 25 floats); CenterNet's 5: of 26 (21
+    columns) one float a thread; a weight mask is broadcast and made
+    contiguous."""
     def view(shape, lead):
         wide = torch.zeros(shape[:-1] + (lead + shape[-1],))
         return wide[..., lead:]
 
-    cases = [(view((2, 4, 4, 5, 20), 4), 1), (view((2, 4, 4, 20), 5), 0),
+    cases = [(view((2, 4, 4, 5, 20), 4), 1), (view((2, 4, 4, 20), 5), 2),
              (view((2, 4, 4, 21), 5), 0), (torch.zeros((3, 8)), 1),
              (torch.zeros((3, 6)), 0)]
     segs = [KF._prepare(x, x, None) for x, _ in cases]
@@ -296,3 +299,43 @@ def test_segment_table_reads_16_bytes_where_it_can():
         assert ptrs[4 * i + 2] is None and ptrs[4 * i + 3] is None
     weighted = KF._prepare(cases[0][0], cases[0][0], torch.ones((2, 4, 4, 5, 1)))
     assert weighted.w.is_contiguous() and weighted.w.shape == (2, 4, 4, 5, 20)
+
+
+@pytest.mark.parametrize("shape,lead", [((2, 6, 6, 20), 5),
+                                        ((2, 3, 3, 5, 20), 4),
+                                        ((3, 7, 8), 1),
+                                        ((2, 4, 4, 21), 5)])
+def test_walk_order_does_not_depend_on_alignment(shape, lead):
+    """A view at an odd float offset and its clone: the walk modes differ
+    only in the width of their loads, and the modelled walk hands every
+    thread the same elements in the same order, covering each once."""
+    wide = torch.zeros(shape[:-1] + (lead + shape[-1],))
+    view = wide[..., lead:]
+    clone = view.clone()
+    seg_v, seg_c = (KF._prepare(t, t, None) for t in (view, clone))
+    assert (seg_v.rows, seg_v.cols) == (seg_c.rows, seg_c.cols)
+    mode_v, mode_c = KF._walk_mode(seg_v, None), KF._walk_mode(seg_c, None)
+    quad = shape[-1] % 4 == 0
+    assert {mode_v, mode_c} <= ({KF._QUAD16, KF._QUAD4} if quad
+                                else {KF._SCALAR})
+    assert mode_c == (KF._QUAD16 if quad else KF._SCALAR)
+    order_v = KF.focal_walk_plain(seg_v.rows, seg_v.cols, mode_v)
+    order_c = KF.focal_walk_plain(seg_c.rows, seg_c.cols, mode_c)
+    assert order_v == order_c
+    flat = np.concatenate([np.asarray(o, np.int64) for o in order_v])
+    assert np.array_equal(np.sort(flat), np.arange(view.numel()))
+
+
+def test_walk_order_is_that_of_the_unit_not_of_the_loads():
+    """At 20 columns the quad walk gives thread t four consecutive floats
+    of one row; the scalar walk would give it one float of each of four
+    rows. Both quad modes are the quad walk."""
+    q16 = KF.focal_walk_plain(64, 20, KF._QUAD16)
+    q4 = KF.focal_walk_plain(64, 20, KF._QUAD4)
+    scalar = KF.focal_walk_plain(64, 20, KF._SCALAR)
+    assert q16 == q4 and q16 != scalar
+    assert q16[1][:4] == [4, 5, 6, 7]
+    assert scalar[1][:2] == [1, 12 * 20 + 1]
+    assert KF._walk_unit(20) == 4 and KF._walk_unit(21) == 1
+    with pytest.raises(ValueError):
+        KF.focal_walk_plain(4, 21, KF._QUAD4)

@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: it imports `torch` and numpy, never
-`jax`, `flax`, `optax`, `orbax` or anything of the `detectax` package, and
-it runs on a CUDA device unless the caller names the CPU.
+`jax`, `flax`, `optax`, `orbax`, `msgpack` or anything of the `detectax`
+package, and it runs on a CUDA device unless the caller names the CPU.
 """
 import ast
 import glob
@@ -12,7 +12,8 @@ import pytest
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "detectax")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "msgpack",
+             "detectax")
 
 SERVE_ONE_REQUEST = r"""
 import sys
@@ -135,7 +136,9 @@ def test_every_port_module_imports_without_a_build():
     assert "detectax_torch.kernels.focal" in mods
     for new in ("kernels.peak", "models.centernet", "cli.infer_centernet",
                 "cli.train_centernet_heatmap",
-                "cli.train_centernet_crowdhuman"):
+                "cli.train_centernet_crowdhuman", "data.detbench",
+                "eval.detection_metrics", "cli.evaluate", "cli._eval_hooks",
+                "cli.train_fcos_center_voc", "cli.train_fcos_center_v1_voc"):
         assert f"detectax_torch.{new}" in mods
     code = (
         "import importlib, sys\n"

@@ -120,9 +120,13 @@ def test_sweep_plan_covers_every_accepted_k():
         assert p["smem_bytes"] <= MAX_SMEM
         assert p["tile_bytes"] % 16 == 0 and p["tile_bytes"] < 2 ** 20
         assert p["slots"] * 32 >= words and p["slots"] <= 8
-    for k in (0, 14465, 10 ** 6):
-        with pytest.raises(ValueError, match="nms_sweep"):
-            TK._sweep_plan(k)
+        assert p["tier"] == "ring"
+    with pytest.raises(ValueError, match="nms_sweep"):
+        TK._sweep_plan(0)
+    # past the ring's bound the wide tier takes over: no upper bound of
+    # the plan's own below what no card's scratch holds
+    for k in (14465, 10 ** 6):
+        assert TK._sweep_plan(k)["tier"] == "wide"
     assert TK._sweep_plan(14464)["stages"] == 2
 
 
@@ -135,9 +139,11 @@ def test_dense_plan_covers_every_accepted_m():
         assert p["slice"] == -(-m // p["cluster"])
         assert p["threads"] * p["per"] >= p["slice"]
         assert p["smem_bytes"] <= MAX_SMEM
-    for m in (0, 65537):
-        with pytest.raises(ValueError, match="dense_nms"):
-            TK._dense_plan(m)
+        assert p["tier"] == "registers"
+    with pytest.raises(ValueError, match="dense_nms"):
+        TK._dense_plan(0)
+    # past the registers' bound the candidates are staged or streamed
+    assert TK._dense_plan(65537)["tier"] == "shared"
     assert TK._dense_plan(65536)["cluster"] == 16
 
 
@@ -158,3 +164,63 @@ def test_wrappers_still_reject_bad_shapes():
     with pytest.raises(ValueError, match="expected shape"):
         TK.suppression_bits(torch.zeros(2, 8, 4), 0.5,
                             torch.zeros(2, 7, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("m,tier", [(65536, "registers"), (76725, "shared"),
+                                    (81920, "shared"), (144032, "shared"),
+                                    (144033, "device"), (327680, "device")])
+def test_dense_plan_tiers_above_the_registers(m, tier):
+    """RetinaNet at 640 px (76,725 candidates) and CenterNetS8 at 1024 px
+    (81,920) are staged in shared memory, 24 bytes a candidate over a
+    cluster of 16 blocks; beyond what that holds the slices are read from
+    device memory. The register plan up to 65,536 is as it was."""
+    p = TK._dense_plan(m)
+    assert p["tier"] == tier
+    assert p["cluster"] == 16 and p["threads"] == 512
+    assert p["slice"] == -(-m // 16)
+    assert p["per"] * p["threads"] >= p["slice"]
+    assert p["smem_bytes"] <= MAX_SMEM
+    if tier == "shared":
+        assert p["smem_bytes"] == TK._DENSE_STATIC_SMEM + 24 * p["slice"]
+    elif tier == "device":
+        assert p["smem_bytes"] == TK._DENSE_STATIC_SMEM
+        assert TK._DENSE_STATIC_SMEM + 24 * p["slice"] > MAX_SMEM
+    else:
+        assert p["per"] == 8
+
+
+@pytest.mark.parametrize("k,tier", [(14464, "ring"), (16384, "wide"),
+                                    (20000, "wide")])
+def test_sweep_plan_tiers(k, tier):
+    """Up to K = 14,464 two 64-row tiles of the mask fit the ring; above,
+    the wide sweep keeps the removed set (8 bytes a word) in shared memory
+    and reads the mask, K^2 / 8 bytes an image, from device memory."""
+    p = TK._sweep_plan(k)
+    words = -(-k // 64)
+    assert p["tier"] == tier and p["words"] == words
+    assert p["mask_bytes"] == 64 * words * words * 8
+    assert p["smem_bytes"] <= MAX_SMEM
+    if tier == "ring":
+        assert p["stages"] == 2 and p["sweep_threads"] == 32
+    else:
+        assert p["stages"] == 0 and p["sweep_threads"] == 256
+        assert p["smem_bytes"] == 8 * words
+        assert 2 * (64 * words * 8 + 8) > MAX_SMEM
+
+
+def test_big_shapes_on_cpu_are_the_plain_versions():
+    """On a CPU tensor the wrappers of both kernels run their plain
+    versions at any size: a dense set past the registers' bound."""
+    g = torch.Generator().manual_seed(0)
+    m = 65600
+    yx = torch.rand((1, m, 2), generator=g) * 500
+    boxes = torch.cat([yx, yx + 20 + 40 * torch.rand((1, m, 2), generator=g)],
+                      dim=-1)
+    scores = torch.rand((1, m), generator=g)
+    classes = torch.randint(0, 3, (1, m), generator=g, dtype=torch.int32)
+    kw = dict(iou_thresh=0.5, score_thresh=0.05, max_outputs=20)
+    got = TK.dense_nms(boxes, scores, classes, **kw)
+    want = TK.dense_nms_plain(boxes, scores, classes, **kw)
+    for key in want:
+        assert torch.equal(got[key], want[key])
+    assert int(got["num_valid"][0]) == 20
