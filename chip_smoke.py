@@ -83,7 +83,30 @@ order:
    then through `cli.train_fcos_center_voc` and
    `cli.train_fcos_center_v1_voc`, and serves one request from each
    checkpoint on the kernels and on the plain versions;
-9. prints one JSON line ``{"kernels": [...]}`` and, last, the ``ok`` line.
+9. the RetinaNet family: serves ResNet-101 RetinaNet (81 classes, 9
+   anchors, 512 px: 49,104 candidates an image) through `Predictor` with
+   buckets (1, 8) and the request mix in `cli.evaluate`'s NMS
+   configuration (class-aware, score 0.05, 100 outputs) and in
+   `cli.infer_retinanet`'s (class-agnostic, 0.30, 200), and one 1024-px
+   image (196,416 candidates: the dense kernel's device-memory tier), each
+   against the same path on the plain versions; trains it at batch 16 for
+   3 steps on the kernel path and 3 on the plain path
+   (`retinanet_assign`, `retinanet_loss`: the five levels' class channels,
+   81 of 85 columns, in one grouped focal call; SGD piecewise, clip 1.0);
+   trains 2 steps through `cli.train_retinanet_coco` and serves one
+   request from its checkpoint; trains 4 steps of `cli.train_retinanet_coco
+   --dataset detbench_v2 --backbone mobilenetv2 --bf16` and evaluates the
+   256 eval images (`cli.evaluate --family retinanet`) on the kernels and
+   on the plain versions, summaries equal. Phase 3 holds the kernels at
+   these shapes first: the RetinaNet focal group (63,638,784 elements,
+   forward and backward, bitwise equal to its contiguous clones) and
+   `dense_nms` at B = 8, M = 49,104 (class-aware, 100 outputs;
+   class-agnostic, 200) and B = 1, M = 196,416 (class-agnostic, 200);
+10. bf16 compute: FCOS-R50 at 384 px, batch 16, 3 steps on the kernel
+   path and 3 on the plain path (step 1 to 1e-4, the last step to
+   `BF16_LATER_RTOL`, 2e-2), and 3 RetinaNet-R101 bf16 steps at 512 px,
+   each step's ms beside the float32 step's;
+11. prints one JSON line ``{"kernels": [...]}`` and, last, the ``ok`` line.
 
 It imports `detectax_torch` only — nothing of JAX or of `detectax`.
 """
@@ -105,6 +128,7 @@ from detectax_torch.infer.export import (
     centernet_decode_fn,
     fcos_decode_fn,
     make_serving_fn,
+    retinanet_decode_fn,
 )
 from detectax_torch.infer.serving import Predictor
 from detectax_torch.kernels import _common as kcommon
@@ -112,17 +136,28 @@ from detectax_torch.kernels import focal as KF
 from detectax_torch.kernels import nms as K
 from detectax_torch.kernels import peak as KP
 from detectax_torch.kernels import probe as KB
-from detectax_torch.models import FCOS, CenterNetFPNSingle, CenterNetS8
+from detectax_torch.models import (
+    FCOS,
+    CenterNetFPNSingle,
+    CenterNetS8,
+    RetinaNet,
+)
+from detectax_torch.ops.anchors import anchor_shapes_per_level
 from detectax_torch.ops.assign import (
     centernet_heatmap_assign,
     centernet_scale_slot_assign,
     fcos_assign,
     fcos_center_assign,
     fcos_center_v1_assign,
+    retinanet_assign,
 )
 from detectax_torch.train.driver import restore_for_inference
 from detectax_torch.train.loop import create_train_state, make_train_step
-from detectax_torch.train.losses import centernet_s8_loss, fcos_loss
+from detectax_torch.train.losses import (
+    centernet_s8_loss,
+    fcos_loss,
+    retinanet_loss,
+)
 from detectax_torch.train.schedules import (
     exponential_with_floor,
     global_norm,
@@ -407,12 +442,12 @@ def check_sweep(rng, batch, k, *, class_aware, with_valid, case="crowded",
 
 
 def check_dense(rng, batch, m, max_outputs, *, case="crowded",
-                class_aware=True, timed=True, plain_reps=2):
+                class_aware=True, timed=True, plain_reps=2, nc=NUM_CLASSES):
     """`dense_nms` against its plain version: every output exactly, two
     runs bitwise equal. `case`: "crowded", "below_threshold" (every score
     under score_thresh), "one_class" (every candidate of class 2),
-    "no_classes" (classes=None)."""
-    boxes, scores, classes = make_candidates(rng, batch, m)
+    "no_classes" (classes=None). `nc`: the classes drawn from."""
+    boxes, scores, classes = make_candidates(rng, batch, m, nc=nc)
     if case == "below_threshold":
         scores = (scores * 0.04).astype(np.float32)
     if case == "one_class":
@@ -1115,9 +1150,11 @@ TRAIN_BATCH, TRAIN_BOXES, TRAIN_STEPS = 16, 16, 3
 PATHS_RTOL = 1e-4  # kernel path against plain path, and split against unsplit
 
 
-def train_batch(seed: int, canvas: int | None = None) -> dict:
+def train_batch(seed: int, canvas: int | None = None,
+                nc: int = NUM_CLASSES) -> dict:
     """A seeded numpy batch: normal images (`CANVAS` pixels a side unless
-    `canvas` is given), 16 boxes an image around the centre, all valid."""
+    `canvas` is given), 16 boxes an image around the centre, all valid,
+    labels drawn from `nc` classes."""
     canvas = canvas or CANVAS
     rng = np.random.default_rng(seed)
     shape = (TRAIN_BATCH, TRAIN_BOXES)
@@ -1130,7 +1167,7 @@ def train_batch(seed: int, canvas: int | None = None) -> dict:
         "images": rng.normal(size=(TRAIN_BATCH, canvas, canvas, 3))
         .astype(np.float32),
         "boxes": boxes,
-        "labels": rng.integers(0, NUM_CLASSES, shape).astype(np.int32),
+        "labels": rng.integers(0, nc, shape).astype(np.int32),
         "valid": np.ones(shape, bool),
     }
 
@@ -1141,11 +1178,11 @@ def assign_fn(boxes, labels, valid):
 
 
 def make_trainer(*, kernels=None, microbatch=None, loss_norm="batch",
-                 freeze_bn=False):
-    """Model (seeded weights, the same on every call), state, step and
-    the optimizer chain."""
+                 freeze_bn=False, dtype=torch.float32):
+    """Model (seeded weights, the same on every call; computing in
+    `dtype`), state, step and the optimizer chain."""
     model = FCOS(num_classes=NUM_CLASSES, backbone=BACKBONE,
-                 freeze_bn=freeze_bn,
+                 freeze_bn=freeze_bn, dtype=dtype,
                  generator=torch.Generator().manual_seed(SEED)).to(DEV)
     opt = make_optimizer("sgd", exponential_with_floor(5e-4), grad_clip=1.0)
     step = make_train_step(
@@ -1572,6 +1609,7 @@ def kernel_and_plain_steps(name, make, assign, batches, *, warmup):
         "peak_memory_bytes": peak_mem, "assign_ms": assign_ms,
         "metrics_step_1": metrics[0], "metrics_last": metrics[-1],
         "plain_metrics_step_1": plain_metrics[0],
+        "plain_metrics_last": plain_metrics[-1],
         "kernel_vs_plain_rel": agree,
     }
 
@@ -1934,6 +1972,471 @@ def center_paths():
 
 
 # --------------------------------------------------------------------------
+# phase 9: the RetinaNet family (serving, training, evaluation)
+# --------------------------------------------------------------------------
+
+RN_BACKBONE, RN_CANVAS, RN_CLASSES = "resnet101", 512, 81
+RN_SIZES = (20.0, 40.0, 80.0, 160.0, 320.0)   # the trainer's anchor sizes
+RN_ANCHORS = anchor_shapes_per_level(anchor_sizes=RN_SIZES)
+RN_LEVELS = (64, 32, 16, 8, 4)   # h = w of the five levels at 512 px
+RN_CANDIDATES = 9 * sum(h * h for h in RN_LEVELS)           # 49,104
+RN_HIGH_RES_CANDIDATES = 9 * sum(4 * h * h for h in RN_LEVELS)  # 196,416
+# the two NMS configurations of the family: `cli.evaluate` (class-aware,
+# score 0.05, 100 outputs) and `cli.infer_retinanet` (class-agnostic,
+# score 0.30, 200 outputs)
+RN_CONFIGS = {"evaluate": {},
+              "infer": dict(class_aware=False, score_thresh=0.30,
+                            max_outputs=200)}
+RN_STEPS = 3
+RN_DETBENCH_STEPS = 4
+# later steps of the bf16 kernel path against its plain path: after step
+# 1 the parameters differ by float32 roundings of the focal gradient's two
+# evaluations (closed form against autograd). From random weights the
+# losses are in the thousands and every step is clipped, so that
+# difference grows: the float32 paths of this script already differ by up
+# to 1.1e-3 (grad_norm) at their last step; in bf16 it also moves
+# roundings of activations, 2^-8 relative each (2.4e-3 seen in total at
+# step 3 on the H100). The tolerance is the bf16 step tolerance of the CPU
+# tests, tests/test_torch_bf16.py
+BF16_LATER_RTOL = 2e-2
+
+
+def check_focal_retinanet():
+    """The RetinaNet class term of a step at batch 16, 512 px, 81 classes,
+    9 anchors, as `retinanet_loss` hands it over: the class channels
+    ``y[..., 4:]`` of the five level maps ``[16, h, h, 9, 85]`` read in
+    place (81 of 85 columns, 785,664 rows, 63,638,784 elements) in one
+    `focal_loss_group` call. Each segment's sum and dlogits against the
+    plain version, one launch each way, two runs bitwise equal, and the
+    same bits from contiguous clones of the segments."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 12)
+    maps = []
+    for h in RN_LEVELS:
+        shape = (FOCAL_BATCH, h, h, 9, 4 + RN_CLASSES)
+        z = (torch.rand(shape, generator=gen, device=DEV) < 0.005).float()
+        x = 4.0 * torch.randn(shape, generator=gen, device=DEV)
+        maps.append((z, x))
+    zs = [z[..., 4:] for z, _ in maps]
+    xs = [x[..., 4:].detach().requires_grad_(True) for _, x in maps]
+    check(not xs[0].is_contiguous(), "RetinaNet focal segments contiguous")
+    name = "focal RetinaNet group (5 levels, 81 of 85 columns)"
+    upstream = torch.linspace(0.5, 2.0, len(xs), device=DEV)
+
+    def run(group, zz, xx):
+        out = group(list(zip(zz, xx)))
+        return out.detach(), torch.autograd.grad(out, xx, upstream)
+
+    before = kcommon.launch_counts()
+    got, got_grads = run(KF.focal_loss_group, zs, xs)
+    after = kcommon.launch_counts()
+    again, again_grads = run(KF.focal_loss_group, zs, xs)
+    torch.cuda.synchronize()
+    for key in ("focal_fwd", "focal_bwd"):
+        check(after.get(key, 0) - before.get(key, 0) == 1,
+              f"{name}: {after.get(key, 0) - before.get(key, 0)} {key} "
+              f"launches for one call, expected 1")
+    check(torch.equal(got, again)
+          and all(torch.equal(a, b) for a, b in zip(got_grads, again_grads)),
+          f"{name}: two runs on the same input differ in their bits")
+    clones = ([z.clone() for z in zs],
+              [x.detach().clone().requires_grad_(True) for x in xs])
+    c_sum, c_grads = run(KF.focal_loss_group, *clones)
+    check(torch.equal(got, c_sum)
+          and all(torch.equal(a, b) for a, b in zip(got_grads, c_grads)),
+          f"{name}: the contiguous clones give other bits")
+    want, want_grads = run(KF.focal_loss_group_plain, zs, xs)
+    sum_rel, grad_err = 0.0, 0.0
+    for i, (g, w, gg, wg) in enumerate(zip(got, want, got_grads,
+                                           want_grads)):
+        rel = float((g - w).abs() / w.abs().clamp_min(1e-30))
+        err = float((gg - wg).abs().max())
+        check(rel <= FOCAL_SUM_RTOL, f"{name}: level {i} sum {float(g)} vs "
+                                     f"plain {float(w)} (rel {rel})")
+        check(err <= FOCAL_GRAD_ATOL, f"{name}: level {i} dlogits differ by "
+                                      f"{err}")
+        sum_rel, grad_err = max(sum_rel, rel), max(grad_err, err)
+    del want_grads, c_grads, again_grads, clones
+    segs = list(zip(zs, xs))
+    ones = torch.ones(len(xs), device=DEV)
+
+    def fwd_bwd(group):
+        def run_():
+            torch.autograd.grad(group(segs), xs, ones)
+        return run_
+
+    with torch.no_grad():
+        ms = queued_ms(lambda: KF.focal_loss_group(segs), reps=20)
+        call_ms = time_ms(lambda: KF.focal_loss_group(segs), warmup=2,
+                          reps=20)
+        plain_ms = time_ms(lambda: KF.focal_loss_group_plain(segs),
+                           warmup=1, reps=3)
+        library_ms = time_ms(lambda: [library_focal(z, x) for z, x in segs],
+                             warmup=1, reps=3)
+    fwd_bwd_ms = queued_ms(fwd_bwd(KF.focal_loss_group), reps=20)
+    plain_fwd_bwd_ms = time_ms(fwd_bwd(KF.focal_loss_group_plain),
+                               warmup=1, reps=3)
+    n = sum(x.numel() for x in xs)
+    bound_ms, bound_by = bound(n * 8 + 4 * len(xs), n * FOCAL_FWD_FLOPS)
+    fwd_bwd_bound_ms, _ = bound(n * 20 + 8 * len(xs),
+                                n * (FOCAL_FWD_FLOPS + FOCAL_BWD_FLOPS))
+    plan = KF._focal_plan([(int(np.prod(x.shape[:-1])), x.shape[-1])
+                           for x in xs])
+    return {
+        "shape": {"case": "retinanet_group", "B": FOCAL_BATCH,
+                  "levels": RN_LEVELS, "anchors": 9, "classes": RN_CLASSES,
+                  "row_stride": 4 + RN_CLASSES, "elements": n,
+                  "rows": sum(int(np.prod(x.shape[:-1])) for x in xs)},
+        "max_abs_err": grad_err, "sum_rel_err": sum_rel,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": library_ms,
+        "fwd_bwd_ms": fwd_bwd_ms, "plain_fwd_bwd_ms": plain_fwd_bwd_ms,
+        "fwd_bwd_bound_ms": fwd_bwd_bound_ms, "call_ms": call_ms,
+        "grid_blocks": sum(b for _, b, _ in plan),
+        "rows_per_block": [r for _, _, r in plan],
+        "bitwise_equal_to_clones": True,
+    }
+
+
+def build_retinanet(dtype=torch.float32) -> RetinaNet:
+    return RetinaNet(num_classes=RN_CLASSES, backbone=RN_BACKBONE,
+                     dtype=dtype,
+                     generator=torch.Generator().manual_seed(SEED))
+
+
+def calibrate_retinanet(model, images) -> float:
+    """Set the class heads' biases so that a tenth of the candidates' best
+    class scores reach 0.35 on `images`: the focal prior would leave NMS
+    nothing, and a fixed bias cannot know the seeded towers' scale.
+    Returns the bias (a pure function of the seed)."""
+    with torch.no_grad():
+        for i in range(1, 6):
+            getattr(model, f"cls_head_{i}").Conv_0.bias.zero_()
+        outs = model(torch.from_numpy(images).to(DEV))
+        best = torch.cat([o[..., 4:].amax(-1).flatten() for o in outs])
+        bias = float(np.log(0.35 / 0.65) - best.quantile(0.9))
+        for i in range(1, 6):
+            getattr(model, f"cls_head_{i}").Conv_0.bias.fill_(bias)
+    return bias
+
+
+def retinanet_predictor(model, *, kernels=None, buckets=BUCKETS,
+                        canvas=None, **serving) -> Predictor:
+    fn = make_serving_fn(model, retinanet_decode_fn(RN_SIZES),
+                         kernels=kernels, **serving)
+    return Predictor.for_model(fn, model, canvas=canvas or RN_CANVAS,
+                               buckets=buckets, device=DEV)
+
+
+def retinanet_serving_path():
+    """ResNet-101 RetinaNet, 81 classes, 9 anchors, 512 px, fp32, seeded
+    weights, through `Predictor` with buckets (1, 8) and the request mix,
+    in both NMS configurations (the counted run: the dense kernel once a
+    chunk each), then the same requests on the plain versions; one
+    1024-px image (the infer CLI's `--high_res`: 196,416 candidates, the
+    dense kernel's device-memory tier) against the plain path."""
+    from detectax_torch.infer.predict import (
+        detections_from_dense,
+        retinanet_decode,
+    )
+
+    rng = np.random.default_rng(SEED + 30)
+    requests = [rng.uniform(-1, 1, size=(n, RN_CANVAS, RN_CANVAS, 3))
+                .astype(np.float32) for n in REQUESTS]
+    model = build_retinanet().to(DEV).eval()
+    bias = calibrate_retinanet(model, requests[2])
+    with torch.no_grad():
+        boxes, probs = retinanet_decode(
+            model(torch.from_numpy(requests[0]).to(DEV)),
+            anchors_per_level=RN_ANCHORS)
+    best = probs.amax(-1)
+    passing = {str(t): int((best >= t).sum()) for t in (0.05, 0.30)}
+    log(f"retinanet serving: M={probs.shape[1]} candidates an image, "
+        f"class-head bias {bias:.4f}, passing in the first image: "
+        f"{passing}")
+    check(probs.shape[1] == RN_CANDIDATES,
+          f"expected {RN_CANDIDATES} candidates, got {probs.shape[1]}")
+    check(passing["0.05"] >= 1000 and passing["0.3"] >= 100,
+          f"too few candidates pass the thresholds: {passing}")
+    check(K._dense_plan(RN_CANDIDATES)["tier"] == "registers"
+          and K._dense_plan(RN_HIGH_RES_CANDIDATES)["tier"] == "device",
+          "the RetinaNet sizes are not on the expected dense tiers")
+    preds = {name: retinanet_predictor(model, **kw)
+             for name, kw in RN_CONFIGS.items()}
+    for p in preds.values():
+        p.warmup()
+
+    # ---- the counted run: counts set to 0 just before, read just after
+    kcommon.reset_launch_counts()
+    results, timings = {}, {}
+    for name, p in preds.items():
+        results[name], timings[name] = serve(p, requests)
+    counts = kcommon.launch_counts()
+    # ----
+    chunks = sum(len(preds["evaluate"]._plan(n)) for n in REQUESTS)
+    check(counts == {"dense_nms": 2 * chunks},
+          f"RetinaNet serving launched {counts}, expected dense_nms once a "
+          f"chunk = {2 * chunks}")
+    for name, kw in RN_CONFIGS.items():
+        max_out = kw.get("max_outputs", 100)
+        for n, dets in zip(REQUESTS, results[name]):
+            check_detections(f"RetinaNet {name}, request of {n}", dets, n,
+                             max_outputs=max_out)
+        if name == "infer":
+            check(all((d["scores"][d["valid"]] >= 0.30).all()
+                      for d in results[name]),
+                  "RetinaNet infer: a kept score below 0.30")
+        plain = retinanet_predictor(model, kernels="plain", **kw)
+        plain_out, _ = serve(plain, requests)
+        for n, got, want in zip(REQUESTS, results[name], plain_out):
+            same_detections(f"RetinaNet {name}, request of {n}", got, want)
+    check(kcommon.launch_counts() == counts,
+          "the RetinaNet plain paths launched a kernel")
+
+    side = 2 * RN_CANVAS
+    big = [retinanet_predictor(model, kernels=k, buckets=(1,), canvas=side,
+                               **RN_CONFIGS["infer"]) for k in (None, "plain")]
+    image = rng.uniform(-1, 1, size=(1, side, side, 3)).astype(np.float32)
+    kcommon.reset_launch_counts()
+    t0 = time.perf_counter()
+    high = big[0].predict(image)
+    high_s = time.perf_counter() - t0
+    high_counts = kcommon.launch_counts()
+    check(high_counts == {"dense_nms": 1},
+          f"1024-px RetinaNet request launched {high_counts}")
+    check_detections(f"RetinaNet at {side} px", high, 1, max_outputs=200)
+    same_detections(f"RetinaNet at {side} px", high, big[1].predict(image))
+    counts = {"dense_nms": counts.get("dense_nms", 0)
+              + high_counts.get("dense_nms", 0)}
+
+    stages = {}
+    with torch.no_grad():
+        x = torch.from_numpy(requests[2]).to(DEV)
+        outs = model(x)
+        boxes, probs = retinanet_decode(outs, anchors_per_level=RN_ANCHORS)
+        t = lambda fn: time_ms(fn, warmup=2, reps=10)
+        stages = {
+            "forward": t(lambda: model(x)),
+            "decode": t(lambda: retinanet_decode(
+                outs, anchors_per_level=RN_ANCHORS)),
+        }
+        for name, kw in RN_CONFIGS.items():
+            stages[f"nms_stage_{name}"] = t(
+                lambda kw=kw: detections_from_dense(boxes, probs, **kw))
+    return counts, {
+        "class_head_bias": bias, "candidates": RN_CANDIDATES,
+        "passing_first_image": passing,
+        "paths": {name: {
+            "images_per_s": sum(REQUESTS) / sum(timings[name]),
+            "request_ms": {str(n): s * 1e3
+                           for n, s in zip(REQUESTS, timings[name])}}
+            for name in RN_CONFIGS},
+        f"request_ms_at_{side}_px": high_s * 1e3,
+        f"num_valid_at_{side}_px": int(high["num_valid"][0]),
+        "stage_ms_batch_8": stages,
+    }
+
+
+def retinanet_assign_fn(boxes, labels, valid):
+    return retinanet_assign(
+        boxes, labels, valid, img_dim=(RN_CANVAS, RN_CANVAS),
+        num_classes=RN_CLASSES, anchors_per_level=RN_ANCHORS)[0]
+
+
+def make_retinanet_trainer(*, kernels=None, dtype=torch.float32):
+    """RetinaNet-R101 at full width as `cli.train_retinanet_coco` composes
+    it: `retinanet_assign`, `retinanet_loss` (the five levels' class terms
+    in one grouped focal call), SGD-momentum, piecewise lr 0.01, clip
+    1.0."""
+    model = build_retinanet(dtype).to(DEV)
+    opt = make_optimizer("sgd", piecewise_constant(0.01, [60000], [0.1]),
+                         grad_clip=1.0)
+    step = make_train_step(
+        model, retinanet_assign_fn,
+        functools.partial(retinanet_loss, kernels=kernels), opt)
+    return model, create_train_state(model, None, opt), step
+
+
+def retinanet_batches(seed: int, n: int) -> list:
+    return [{k: cuda(v) for k, v in train_batch(
+        seed + i, canvas=RN_CANVAS, nc=RN_CLASSES).items()}
+        for i in range(n)]
+
+
+def retinanet_train_path():
+    batches = retinanet_batches(SEED + 50, RN_STEPS)
+    counts, out = kernel_and_plain_steps(
+        "RetinaNet training", make_retinanet_trainer, retinanet_assign_fn,
+        batches, warmup=True)
+    steady = out["step_ms"][1:]
+    return counts, {"optimizer": "sgd", **out,
+                    "step_ms_mean_after_first": sum(steady) / len(steady)}
+
+
+def retinanet_cli_path():
+    """`cli.train_retinanet_coco` for 2 steps at 512 px, batch 16, on the
+    synthetic dataset, then one 8-image request from its checkpoint on the
+    kernels and on the plain versions."""
+    from detectax_torch.cli import train_retinanet_coco
+
+    steps = 2
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt_dir = os.path.join(tmp, "ckpt")
+        kcommon.reset_launch_counts()
+        summary = train_retinanet_coco.main([
+            "--backbone", RN_BACKBONE, "--canvas", str(RN_CANVAS),
+            "--batch_size", "16", "--max_steps", str(steps),
+            "--display_step", "1", "--step_save", str(steps),
+            "--synthetic_n", "32", "--ckpt_dir", ckpt_dir,
+            "--out_dir", os.path.join(tmp, "out"),
+        ])
+        counts = kcommon.launch_counts()
+        check(summary["final_step"] == steps
+              and np.isfinite(summary["total"]), f"CLI trained {summary}")
+        check(counts == {"focal_fwd": steps, "focal_bwd": steps},
+              f"RetinaNet CLI launched {counts}")
+        nc = 3  # the synthetic dataset's classes
+        model = RetinaNet(num_classes=nc, backbone=RN_BACKBONE).to(DEV)
+        fresh = model.cls_head_1.Conv_0.weight.clone()
+        restore_for_inference(ckpt_dir, model)
+        check(not torch.equal(fresh, model.cls_head_1.Conv_0.weight),
+              "restore left the model's weights as they were")
+    preds = [retinanet_predictor(model, kernels=k, buckets=(8,),
+                                 score_thresh=0.0) for k in (None, "plain")]
+    images = np.random.default_rng(SEED + 31).uniform(
+        -1, 1, size=(8, RN_CANVAS, RN_CANVAS, 3)).astype(np.float32)
+    kcommon.reset_launch_counts()
+    dets = preds[0].predict(images)
+    check(kcommon.launch_counts() == {"dense_nms": 1},
+          f"RetinaNet request launched {kcommon.launch_counts()}")
+    name = "RetinaNet request from the checkpoint"
+    check(dets["boxes"].shape == (8, 100, 4), f"{name}: wrong shapes")
+    check((dets["num_valid"] > 0).all()
+          and (dets["classes"][dets["valid"]] < nc).all(),
+          f"{name}: no or impossible detections")
+    same_detections(name, dets, preds[1].predict(images))
+    return {k: summary[k] for k in ("final_step", "images_per_sec", "total",
+                                    "grad_norm")}
+
+
+def retinanet_detbench_path():
+    """`cli.train_retinanet_coco --dataset detbench_v2 --backbone
+    mobilenetv2 --bf16` for a few steps at 512 px, batch 16 (the TPU row's
+    recipe: losses over the positives, clip 16), then `cli.evaluate
+    --family retinanet` over the 256 eval images on the kernels (the
+    counted run: the dense kernel once a batch of 8, 49,104 candidates an
+    image, class-aware) and on the plain versions; the summaries must be
+    equal. No score threshold, so that every image keeps 100 detections."""
+    import contextlib
+    import io
+
+    from detectax_torch.cli import evaluate, train_retinanet_coco
+    from detectax_torch.data.detbench import DetBenchDataset, load_spec
+
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["DETECTAX_DETBENCH_CACHE"] = os.path.join(tmp, "cache")
+        ckpt_dir = os.path.join(tmp, "ckpt")
+        t0 = time.perf_counter()
+        spec = load_spec(name="detbench_v2")
+        DetBenchDataset("train", spec=spec)
+        DetBenchDataset("eval", spec=spec)
+        cache_s = time.perf_counter() - t0
+        kcommon.reset_launch_counts()
+        t1 = time.perf_counter()
+        summary = train_retinanet_coco.main([
+            "--dataset", "detbench_v2", "--backbone", "mobilenetv2",
+            "--bf16", "--canvas", str(RN_CANVAS), "--batch_size", "16",
+            "--max_steps", str(RN_DETBENCH_STEPS), "--display_step", "2",
+            "--step_save", str(RN_DETBENCH_STEPS), "--loss_norm", "pos",
+            "--grad_clip", "16", "--ckpt_dir", ckpt_dir,
+            "--out_dir", os.path.join(tmp, "out"),
+        ])
+        train_s = time.perf_counter() - t1
+        train_counts = kcommon.launch_counts()
+        check(summary["final_step"] == RN_DETBENCH_STEPS
+              and np.isfinite(summary["total"]),
+              f"DetBench v2 RetinaNet training: {summary}")
+        check(train_counts == {"focal_fwd": RN_DETBENCH_STEPS,
+                               "focal_bwd": RN_DETBENCH_STEPS},
+              f"DetBench v2 RetinaNet training launched {train_counts}")
+        argv = ["--family", "retinanet", "--dataset", "detbench_v2",
+                "--backbone", "mobilenetv2", "--ckpt_dir", ckpt_dir,
+                "--coco_metrics", "--cls_thresh", "0.0"]
+        quiet = io.StringIO()
+        # ---- the counted run: counts set to 0 just before, read just after
+        kcommon.reset_launch_counts()
+        t2 = time.perf_counter()
+        with contextlib.redirect_stdout(quiet):
+            got = evaluate.main(argv)
+        eval_s = time.perf_counter() - t2
+        counts = kcommon.launch_counts()
+        # ----
+        with contextlib.redirect_stdout(quiet):
+            want = evaluate.main(argv + ["--plain_kernels"])
+        check(kcommon.launch_counts() == counts,
+              "the plain-kernel evaluation launched a kernel")
+        del os.environ["DETECTAX_DETBENCH_CACHE"]
+    batches = -(-256 // 8)
+    check(counts == {"dense_nms": batches},
+          f"DetBench v2 evaluation launched {counts}, expected {batches}")
+    check(got["num_images"] == 256, f"evaluated {got['num_images']} images")
+    check(got == want, f"DetBench v2 summaries differ: kernels {got}, "
+                       f"plain versions {want}")
+    return train_counts, counts, {
+        "cache_s": cache_s, "train_s_with_filter": train_s,
+        "train": {k: summary[k] for k in ("final_step", "images_per_sec",
+                                          "total", "cls", "num_pos",
+                                          "grad_norm")},
+        "eval_s": eval_s, "eval_images_per_s": 256 / eval_s,
+        "summary": got, "summaries_equal": True,
+    }
+
+
+def bf16_train_path(fp32_step_ms, retinanet_fp32_step_ms):
+    """FCOS-R50 at 384 px, batch 16, bf16 compute: 3 steps on the kernel
+    path (the counted run) and 3 on the plain path from the same state;
+    step 1 agrees to PATHS_RTOL (the paths differ in the focal sum's order
+    only), the last step to BF16_LATER_RTOL. Then 3 RetinaNet-R101 bf16
+    steps at 512 px on the kernel path, timed."""
+    batches = [{k: cuda(v) for k, v in train_batch(SEED + 10 + i).items()}
+               for i in range(TRAIN_STEPS)]
+
+    def make(kernels=None):
+        model, state, step, _ = make_trainer(kernels=kernels,
+                                             dtype=torch.bfloat16)
+        return model, state, step
+
+    counts, out = kernel_and_plain_steps(
+        "FCOS bf16 training", make, assign_fn, batches, warmup=True)
+    later = {}
+    for key in ("total", "cls", "grad_norm"):
+        a, b = out["metrics_last"][key], out["plain_metrics_last"][key]
+        later[key] = abs(a - b) / max(abs(a), abs(b))
+        check(close(a, b, BF16_LATER_RTOL),
+              f"FCOS bf16 step {TRAIN_STEPS} {key}: kernel path {a}, plain "
+              f"path {b} (tolerance rtol {BF16_LATER_RTOL})")
+    rbatches = retinanet_batches(SEED + 50, RN_STEPS)
+    _, rstate, rstep = make_retinanet_trainer(dtype=torch.bfloat16)
+    run_steps(rstate, rstep, rbatches[:1])   # warm-up: cuDNN picks plans
+    kcommon.reset_launch_counts()
+    rmetrics, rms = run_steps(rstate, rstep, rbatches)
+    rcounts = kcommon.launch_counts()
+    check(rcounts == {"focal_fwd": RN_STEPS, "focal_bwd": RN_STEPS},
+          f"RetinaNet bf16 training launched {rcounts}")
+    check(all(np.isfinite(v) for m in rmetrics for v in m.values()),
+          f"RetinaNet bf16 training: non-finite metrics {rmetrics}")
+    steady = out["step_ms"][1:]
+    return counts, rcounts, {
+        "fcos_r50": {**out, "later_steps_rtol": BF16_LATER_RTOL,
+                     "kernel_vs_plain_rel_last_step": later,
+                     "step_ms_mean_after_first": sum(steady) / len(steady),
+                     "fp32_step_ms": fp32_step_ms},
+        "retinanet_r101": {"step_ms": rms,
+                           "fp32_step_ms": retinanet_fp32_step_ms,
+                           "metrics_last": rmetrics[-1]},
+    }
+
+
+# --------------------------------------------------------------------------
 
 def main() -> None:
     if not torch.cuda.is_available():
@@ -2023,6 +2526,16 @@ def main() -> None:
                           timed=False),
               check_dense(big, 2, 150001, 50, class_aware=False,
                           timed=False)]
+    # RetinaNet at 512 px (49,104 candidates an image): cli.evaluate's
+    # configuration and cli.infer_retinanet's; and its --high_res 1024 px
+    # (196,416, the device-memory tier)
+    rn = np.random.default_rng(SEED + 11)
+    dense += [check_dense(rn, 8, RN_CANDIDATES, 100, plain_reps=1,
+                          nc=RN_CLASSES),
+              check_dense(rn, 8, RN_CANDIDATES, 200, class_aware=False,
+                          plain_reps=1, nc=RN_CLASSES),
+              check_dense(rn, 1, RN_HIGH_RES_CANDIDATES, 200,
+                          class_aware=False, plain_reps=1, nc=RN_CLASSES)]
     for r in sweep:
         if "ms" in r:
             r["chain_ms"] = r["shape"]["K"] * step_ns * 1e-6
@@ -2037,6 +2550,8 @@ def main() -> None:
     focal = check_focal_all(rng)
     focal[0]["alignment"] = check_focal_alignment(
         np.random.default_rng(SEED + 9))
+    focal.append(check_focal_retinanet())
+    torch.cuda.empty_cache()
     for r in focal:
         log(f"kernel focal {json.dumps(r)}")
     groups = check_focal_groups(np.random.default_rng(SEED + 7))
@@ -2084,19 +2599,55 @@ def main() -> None:
     center_counts, center = center_paths()
     log("fcos_center " + json.dumps({"card": card, "canvas": CANVAS,
                                      "classes": NUM_CLASSES, **center}))
+    torch.cuda.empty_cache()
+
+    rn_counts, rn_serving = retinanet_serving_path()
+    log("retinanet_serving " + json.dumps({
+        "card": card, "model": f"RetinaNet {RN_BACKBONE}",
+        "canvas": RN_CANVAS, "dtype": "float32", "classes": RN_CLASSES,
+        "anchors": 9, "buckets": BUCKETS, "requests": REQUESTS,
+        "nms": RN_CONFIGS, **rn_serving}))
+    torch.cuda.empty_cache()
+    rn_train_counts, rn_training = retinanet_train_path()
+    log("retinanet_training " + json.dumps({
+        "card": card, "model": f"RetinaNet {RN_BACKBONE}",
+        "canvas": RN_CANVAS, "dtype": "float32", "classes": RN_CLASSES,
+        **rn_training}))
+    torch.cuda.empty_cache()
+    log("retinanet_cli " + json.dumps(retinanet_cli_path()))
+    torch.cuda.empty_cache()
+    rn_db_train_counts, rn_db_counts, rn_detbench = retinanet_detbench_path()
+    log("retinanet_detbench_v2 " + json.dumps({
+        "card": card, "model": "RetinaNet mobilenetv2", "canvas": RN_CANVAS,
+        "dtype": "bfloat16", **rn_detbench}))
+    torch.cuda.empty_cache()
+    bf16_counts, rn_bf16_counts, bf16 = bf16_train_path(
+        training["step_ms"], rn_training["step_ms"])
+    log("bf16_training " + json.dumps({
+        "card": card, "fcos": f"FCOS {BACKBONE} FPN, {CANVAS} px",
+        "retinanet": f"RetinaNet {RN_BACKBONE}, {RN_CANVAS} px",
+        "dtype": "bfloat16", "batch": TRAIN_BATCH, **bf16}))
 
     by_path = {
         "nms_sweep": {"fcos_serving": counts["nms_sweep"]},
         "dense_nms": {"fcos_serving": counts["dense_nms"],
                       "centernet_serving": cn_counts["dense_nms"],
-                      "detbench_evaluation": db_counts["dense_nms"]},
+                      "detbench_evaluation": db_counts["dense_nms"],
+                      "retinanet_serving": rn_counts["dense_nms"],
+                      "retinanet_detbench_v2_evaluation":
+                          rn_db_counts["dense_nms"]},
         "focal": {"fcos_training": train_counts["focal_fwd"],
                   "centernet_training": cn_train_counts["focal_fwd"],
                   "centernet_s8_training": s8_train_counts["focal_fwd"],
                   "fcos_center_training":
                       center_counts["center"]["focal_fwd"],
                   "fcos_center_v1_training":
-                      center_counts["center_v1"]["focal_fwd"]},
+                      center_counts["center_v1"]["focal_fwd"],
+                  "retinanet_training": rn_train_counts["focal_fwd"],
+                  "retinanet_detbench_v2_bf16_training":
+                      rn_db_train_counts["focal_fwd"],
+                  "fcos_bf16_training": bf16_counts["focal_fwd"],
+                  "retinanet_bf16_training": rn_bf16_counts["focal_fwd"]},
         "peak": {"centernet_serving": cn_counts["peak"]},
     }
     for name, paths in by_path.items():
@@ -2107,7 +2658,11 @@ def main() -> None:
                                 + cn_train_counts["focal_bwd"]
                                 + s8_train_counts["focal_bwd"]
                                 + sum(c["focal_bwd"]
-                                      for c in center_counts.values()))
+                                      for c in center_counts.values())
+                                + rn_train_counts["focal_bwd"]
+                                + rn_db_train_counts["focal_bwd"]
+                                + bf16_counts["focal_bwd"]
+                                + rn_bf16_counts["focal_bwd"])
     # the five levels: one grouped call (what training runs), and beside it
     # the five single calls of the per-level rows
     levels, grouped = focal[:len(FOCAL_LEVELS)], groups[0]

@@ -1,11 +1,13 @@
 """Shared CLI plumbing for the train entry points.
 
 Port of `detectax/cli/_common.py`: the same flags and defaults, plus
-``--device``. Flags whose code is not ported yet are kept and raise.
+``--device``.
 """
 from __future__ import annotations
 
 import argparse
+
+import torch
 
 from detectax_torch.train.driver import TrainConfig
 
@@ -60,7 +62,7 @@ def add_train_args(p: argparse.ArgumentParser, **defaults):
                         "without it)")
     p.add_argument("--seed", type=int, default=d("seed", 0))
     p.add_argument("--bf16", action="store_true",
-                   help="bfloat16 compute (not ported yet: float32 only)")
+                   help="bfloat16 compute (parameters stay float32)")
     p.add_argument("--init_backbone", default=d("init_backbone", None),
                    help="backbone weights to initialize from: the "
                         "port's .npz (detectax_torch.tools.from_flax."
@@ -84,12 +86,11 @@ def add_train_args(p: argparse.ArgumentParser, **defaults):
     return p
 
 
-def check_ported(args) -> None:
-    """Raise for the flags whose code waits for a later slice."""
-    if args.bf16:
-        raise NotImplementedError(
-            "--bf16 is not ported yet (ROADMAP.md queue 1, the rest of the "
-            "training flags); the port trains in float32")
+def compute_dtype(args) -> torch.dtype:
+    """The model's compute dtype: bfloat16 under ``--bf16`` (as the JAX
+    trainers build their model with ``dtype=jnp.bfloat16``), else
+    float32. The parameters, the checkpoint and the driver stay float32."""
+    return torch.bfloat16 if args.bf16 else torch.float32
 
 
 def dataset_from_args(args, split: str = "train"):

@@ -5,7 +5,7 @@ forward on the batch's first image and draw a detection overlay (FCOS: and
 its P3 max-class-probability heatmap) through `infer.visualize`. Drawing
 needs matplotlib: a hook factory checks for it when it is called, so a
 trainer asked for ``--dump_visuals`` without it raises at start-up, before
-step 1. The RetinaNet hook comes with that family.
+step 1.
 """
 from __future__ import annotations
 
@@ -61,6 +61,26 @@ def centernet_s8_eval_hook(box_scales, id_to_label=None):
             dets = P.detections_from_dense(
                 boxes, probs, iou_thresh=0.213, score_thresh=0.3,
                 max_outputs=100, class_aware=True)
+        _draw_detections(img, dets, id_to_label,
+                         os.path.join(out_dir, f"detect_{step}.jpg"))
+
+    return hook
+
+
+def retinanet_eval_hook(anchors_per_level, id_to_label=None):
+    """Class-agnostic NMS at score 0.3, as the reference's RetinaNet
+    inference draws."""
+    visualize.require_matplotlib()
+
+    def hook(step, state, forward, batch, out_dir):
+        img = batch["images"][:1]
+        outs = forward(img)
+        with torch.no_grad():
+            boxes, probs = P.retinanet_decode(
+                outs, anchors_per_level=anchors_per_level)
+            dets = P.detections_from_dense(
+                boxes, probs, iou_thresh=0.5, score_thresh=0.3,
+                max_outputs=100, class_aware=False)
         _draw_detections(img, dets, id_to_label,
                          os.path.join(out_dir, f"detect_{step}.jpg"))
 

@@ -32,7 +32,13 @@ from detectax_torch.eval.detection_metrics import (
     coco_evaluator,
 )
 from detectax_torch.infer import predict as P
-from detectax_torch.models import FCOS, CenterNetFPNSingle, CenterNetS8
+from detectax_torch.models import (
+    FCOS,
+    CenterNetFPNSingle,
+    CenterNetS8,
+    RetinaNet,
+)
+from detectax_torch.ops import anchors as anchor_lib
 from detectax_torch.runtime import resolve_device, set_tf32
 from detectax_torch.tools.from_flax import load_flax, load_weights
 from detectax_torch.train.driver import restore_for_inference
@@ -48,7 +54,6 @@ _WAITING = {
                  "family",
     "stacked_hourglass": "ROADMAP.md queue 1, the hourglass half of the "
                          "CenterNet family",
-    "retinanet": "ROADMAP.md queue 1, RetinaNet",
 }
 
 # Training-time preprocessing per family (mirrors the trainer CLIs: eval
@@ -100,6 +105,16 @@ def build_family(family, nc, backbone, canvas, args, kernels=None):
         return model, lambda out: P.centernet_heatmap_decode(
             out, kernels=kernels
         )
+    if family == "retinanet":
+        anchors = anchor_lib.anchor_shapes_per_level(
+            anchor_sizes=args.anchor_sizes)
+        model = RetinaNet(
+            num_classes=nc, n_anchors=anchors[0].shape[0],
+            backbone=backbone,
+            per_anchor_heads=getattr(args, "per_anchor_heads", False),
+        )
+        return model, lambda outs: P.retinanet_decode(
+            outs, anchors_per_level=anchors)
     raise ValueError(f"unknown family {family}")
 
 

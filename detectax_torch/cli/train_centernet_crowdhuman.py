@@ -17,7 +17,7 @@ import argparse
 
 from detectax_torch.cli._common import (
     add_train_args,
-    check_ported,
+    compute_dtype,
     config_from_args,
     dataset_from_args,
 )
@@ -53,7 +53,6 @@ def main(argv=None):
     p.add_argument("--base_dims", type=int, default=448,
                    help="reference base_rows/base_cols (=448)")
     args = p.parse_args(argv)
-    check_ported(args)
     resolve_device(args.device)  # fail before any work without a device
 
     dataset = dataset_from_args(args)
@@ -61,6 +60,7 @@ def main(argv=None):
     model = CenterNetS8(
         num_classes=nc, n_scales=len(args.box_scales),
         backbone=args.backbone, freeze_bn=args.freeze_bn,
+        dtype=compute_dtype(args),
     )
     cfg = config_from_args(
         args,

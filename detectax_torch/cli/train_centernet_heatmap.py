@@ -18,7 +18,7 @@ import argparse
 
 from detectax_torch.cli._common import (
     add_train_args,
-    check_ported,
+    compute_dtype,
     config_from_args,
     dataset_from_args,
 )
@@ -42,7 +42,6 @@ def main(argv=None):
                    default="pseudo")
     p.add_argument("--reg_type", choices=("l1", "iou"), default="l1")
     args = p.parse_args(argv)
-    check_ported(args)
     if args.dump_visuals:
         raise NotImplementedError(
             "--dump_visuals: this trainer has no visual hook (neither has "
@@ -52,7 +51,8 @@ def main(argv=None):
     dataset = dataset_from_args(args)
     nc = dataset.num_classes
     model = CenterNetFPNSingle(num_classes=nc, backbone=args.backbone,
-                               freeze_bn=args.freeze_bn)
+                               freeze_bn=args.freeze_bn,
+                               dtype=compute_dtype(args))
     cfg = config_from_args(
         args,
         optimizer="adam",

@@ -16,7 +16,7 @@ import functools
 
 from detectax_torch.cli._common import (
     add_train_args,
-    check_ported,
+    compute_dtype,
     config_from_args,
     dataset_from_args,
 )
@@ -41,13 +41,12 @@ def main(argv=None):
     p.add_argument("--min_lr", type=float, default=1e-5)
     p.add_argument("--weight_decay", type=float, default=0.0)
     args = p.parse_args(argv)
-    check_ported(args)
     resolve_device(args.device)  # fail before any work without a device
 
     dataset = dataset_from_args(args)
     nc = dataset.num_classes
     model = FCOS(num_classes=nc, variant="fcos", backbone=args.backbone,
-                 freeze_bn=args.freeze_bn)
+                 freeze_bn=args.freeze_bn, dtype=compute_dtype(args))
     cfg = config_from_args(
         args,
         optimizer="sgd",

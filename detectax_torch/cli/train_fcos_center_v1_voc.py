@@ -16,7 +16,7 @@ import argparse
 
 from detectax_torch.cli._common import (
     add_train_args,
-    check_ported,
+    compute_dtype,
     config_from_args,
     dataset_from_args,
 )
@@ -36,13 +36,13 @@ def main(argv=None):
     add_train_args(p, canvas=384, batch_size=16, init_lr=0.01,
                    backbone="resnet50", max_steps=20000)
     args = p.parse_args(argv)
-    check_ported(args)
     resolve_device(args.device)  # fail before any work without a device
 
     dataset = dataset_from_args(args)
     nc = dataset.num_classes
     model = FCOS(num_classes=nc, variant="center_v1",
-                 backbone=args.backbone, freeze_bn=args.freeze_bn)
+                 backbone=args.backbone, freeze_bn=args.freeze_bn,
+                 dtype=compute_dtype(args))
     cfg = config_from_args(
         args,
         optimizer="sgd",

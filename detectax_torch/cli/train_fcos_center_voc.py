@@ -17,7 +17,7 @@ import functools
 
 from detectax_torch.cli._common import (
     add_train_args,
-    check_ported,
+    compute_dtype,
     config_from_args,
     dataset_from_args,
 )
@@ -41,13 +41,12 @@ def main(argv=None):
                    help="assign the 3x3 neighborhood instead of centroid only")
     p.add_argument("--lr_boundary", type=int, default=8000)
     args = p.parse_args(argv)
-    check_ported(args)
     resolve_device(args.device)  # fail before any work without a device
 
     dataset = dataset_from_args(args)
     nc = dataset.num_classes
     model = FCOS(num_classes=nc, variant="center", backbone=args.backbone,
-                 freeze_bn=args.freeze_bn)
+                 freeze_bn=args.freeze_bn, dtype=compute_dtype(args))
     cfg = config_from_args(
         args,
         optimizer="adam",

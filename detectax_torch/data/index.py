@@ -1,7 +1,8 @@
 """Dataset index format: one JSON file listing samples + the class map.
 
 The reading half of `detectax/data/index.py`, as a copy: per-sample image
-path, normalized corner boxes and labels.
+path, normalized corner boxes and labels; and `SubsetDataset`, the
+filtered view the RetinaNet trainer takes of any dataset.
 """
 from __future__ import annotations
 
@@ -12,6 +13,26 @@ def load_index(path: str):
     with open(path) as f:
         data = json.load(f)
     return data["classes"], data["samples"]
+
+
+class SubsetDataset:
+    """A filtered view over any map-style dataset (keeps its class
+    metadata): item ``i`` is the dataset's item ``keep_indices[i]``."""
+
+    def __init__(self, dataset, keep_indices):
+        self.ds = dataset
+        self.keep = list(keep_indices)
+        self.id_to_label = getattr(dataset, "id_to_label", None)
+
+    @property
+    def num_classes(self) -> int:
+        return self.ds.num_classes
+
+    def __len__(self):
+        return len(self.keep)
+
+    def __getitem__(self, idx: int):
+        return self.ds[self.keep[idx]]
 
 
 class IndexDataset:

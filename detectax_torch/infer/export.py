@@ -30,7 +30,8 @@ WEIGHTS_NAME = "weights.npz"
 BUNDLE_FORMAT = "detectax-torch-serving-bundle-v1"
 
 _NMS_DEFAULTS = dict(top_k=1024, iou_thresh=0.5, score_thresh=0.05,
-                     max_outputs=100, class_aware_candidates=False)
+                     max_outputs=100, class_aware=True,
+                     class_aware_candidates=False)
 
 
 def make_serving_fn(
@@ -41,6 +42,7 @@ def make_serving_fn(
     iou_thresh: float = 0.5,
     score_thresh: float = 0.05,
     max_outputs: int = 100,
+    class_aware: bool = True,
     class_aware_candidates: bool = False,
     fused: bool | None = None,
     kernels=None,
@@ -58,6 +60,7 @@ def make_serving_fn(
         return P.detections_from_dense(
             boxes, probs, top_k=top_k, iou_thresh=iou_thresh,
             score_thresh=score_thresh, max_outputs=max_outputs,
+            class_aware=class_aware,
             class_aware_candidates=class_aware_candidates, fused=fused,
             kernels=kernels,
         )
@@ -96,7 +99,18 @@ def centernet_decode_fn(family: str, *, box_scales=None, kernels=None):
     raise ValueError(f"unknown CenterNet family {family!r}")
 
 
-FAMILIES = ("fcos", "centernet_heatmap", "centernet_s8")
+def retinanet_decode_fn(anchor_sizes: Sequence[float]):
+    """The decode of a `RetinaNet` trained with ``anchor_sizes`` (one a
+    level; the default aspect ratios and scales give nine anchors a
+    cell)."""
+    from detectax_torch.ops.anchors import anchor_shapes_per_level
+
+    anchors = anchor_shapes_per_level(
+        anchor_sizes=[float(s) for s in anchor_sizes])
+    return lambda outs: P.retinanet_decode(outs, anchors_per_level=anchors)
+
+
+FAMILIES = ("fcos", "centernet_heatmap", "centernet_s8", "retinanet")
 
 
 def save_bundle(
@@ -107,14 +121,17 @@ def save_bundle(
     buckets: Sequence[int] = (1, 8),
     center: bool = False,
     box_scales: Sequence[float] | None = None,
+    anchor_sizes: Sequence[float] | None = None,
     manifest_extra: dict | None = None,
     **nms_config,
 ) -> dict:
     """Write ``manifest.json`` + ``weights.npz`` for an `FCOS`,
-    `CenterNetFPNSingle` or `CenterNetS8` module (the module's ``family``
-    goes into the manifest). ``center`` belongs to FCOS, ``box_scales``
-    (one a slot) to `CenterNetS8`. ``nms_config`` takes the NMS keywords of
-    `make_serving_fn` (top_k, iou_thresh, score_thresh, max_outputs,
+    `CenterNetFPNSingle`, `CenterNetS8` or `RetinaNet` module (the
+    module's ``family`` goes into the manifest). ``center`` belongs to
+    FCOS, ``box_scales`` (one a slot) to `CenterNetS8`, ``anchor_sizes``
+    (one a level) to `RetinaNet`, whose manifest also records its head
+    layout. ``nms_config`` takes the NMS keywords of `make_serving_fn`
+    (top_k, iou_thresh, score_thresh, max_outputs, class_aware,
     class_aware_candidates)."""
     from detectax_torch.tools.from_flax import save_npz, to_flax
 
@@ -143,6 +160,14 @@ def save_bundle(
                 f"a CenterNetS8 bundle needs {model.n_scales} box_scales, "
                 f"got {box_scales!r}")
         extra["box_scales"] = [float(s) for s in box_scales]
+    elif family == "retinanet":
+        cfg["n_anchors"] = model.n_anchors
+        cfg["per_anchor_heads"] = model.per_anchor_heads
+        if anchor_sizes is None or len(anchor_sizes) != 5:
+            raise ValueError(
+                f"a RetinaNet bundle needs 5 anchor_sizes (one a level), "
+                f"got {anchor_sizes!r}")
+        extra["anchor_sizes"] = [float(s) for s in anchor_sizes]
     os.makedirs(out_dir, exist_ok=True)
     params, batch_stats = to_flax(model)
     save_npz(os.path.join(out_dir, WEIGHTS_NAME), params, batch_stats)
@@ -178,6 +203,11 @@ def _model_and_decode(manifest: dict):
         return (models.CenterNetS8(n_scales=cfg["n_scales"], **common),
                 centernet_decode_fn(family,
                                     box_scales=manifest["box_scales"]))
+    if family == "retinanet":
+        return (models.RetinaNet(n_anchors=cfg["n_anchors"],
+                                 per_anchor_heads=cfg["per_anchor_heads"],
+                                 **common),
+                retinanet_decode_fn(manifest["anchor_sizes"]))
     raise ValueError(f"unsupported model family {family!r}; a bundle holds "
                      f"one of {FAMILIES}")
 

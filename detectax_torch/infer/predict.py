@@ -1,10 +1,11 @@
 """Inference: forward → decode → fixed-shape NMS.
 
-Port of the FCOS and ResNet-backbone CenterNet parts of
-`detectax/infer/predict.py`: per-level decode (`ops.boxes`), the heatmap
-peak mask (`kernels.peak`), candidate selection and the shared
-deterministic NMS (`ops.nms`). Everything static-shape; batch-first. The
-hourglass and RetinaNet decoders wait for their model families.
+Port of the FCOS, ResNet-backbone CenterNet and RetinaNet parts of
+`detectax/infer/predict.py`: per-level decode (`ops.boxes`,
+`ops.anchors`), the heatmap peak mask (`kernels.peak`), candidate
+selection and the shared deterministic NMS (`ops.nms`). Everything
+static-shape; batch-first. The hourglass decoders wait for their model
+family.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ from typing import Sequence
 import torch
 
 from detectax_torch.kernels import peak as peak_lib
+from detectax_torch.ops import anchors as anchor_lib
 from detectax_torch.ops import nms as nms_lib
 from detectax_torch.ops.boxes import ltrb_to_corners, offset_scale_to_corners
 
@@ -127,6 +129,29 @@ def centernet_heatmap_decode(
     if peak_mask:
         probs = mask_fn(probs)
     return boxes.reshape(b, -1, 4), probs.reshape(b, h * w, probs.shape[-1])
+
+
+def retinanet_decode(
+    outputs: Sequence[torch.Tensor],
+    *,
+    anchors_per_level: Sequence[torch.Tensor],
+    strides: Sequence[int] = FCOS_STRIDES,
+):
+    """Anchor-relative decode of the five ``[B, h, w, A, 4+nc]`` maps: per
+    level the anchor boxes, `ops.anchors.decode_anchor_regression` and the
+    sigmoid of the class logits. Returns (boxes ``[B, M, 4]`` pixels yxyx,
+    probs ``[B, M, nc]``), candidates ordered level-major, then cell, then
+    anchor."""
+    all_boxes, all_probs = [], []
+    for out, stride, anchors_hw in zip(outputs, strides, anchors_per_level):
+        b, h, w, _, _ = out.shape
+        ab = anchor_lib.anchor_boxes_level(h, w, stride, anchors_hw,
+                                           device=out.device)
+        boxes = anchor_lib.decode_anchor_regression(out[..., :4], ab[None])
+        cls = out[..., 4:]
+        all_boxes.append(boxes.reshape(b, -1, 4))
+        all_probs.append(torch.sigmoid(cls).reshape(b, -1, cls.shape[-1]))
+    return torch.cat(all_boxes, dim=1), torch.cat(all_probs, dim=1)
 
 
 def detections_from_dense(

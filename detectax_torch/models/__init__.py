@@ -4,3 +4,4 @@ from detectax_torch.models.centernet import (  # noqa: F401
     CenterNetFPNSingle,
     CenterNetS8,
 )
+from detectax_torch.models.retinanet import RetinaNet  # noqa: F401

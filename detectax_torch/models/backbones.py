@@ -4,16 +4,23 @@ Port of `detectax/models/backbones.py`: ResNet-50/101/152, ResNeXt-50/101
 (grouped convolutions), MobileNetV2 and the tiny test trunk. Each backbone
 maps an NCHW image batch to the C3/C4/C5 taps (strides 8/16/32) and names
 its tap widths in ``out_channels``. ``flax_name`` is the name the Flax
-parameter tree gives the trunk inside a detector.
+parameter tree gives the trunk inside a detector. ``dtype`` is the compute
+dtype of every layer (the parameters stay float32).
 """
 from __future__ import annotations
 
 from typing import Sequence
 
+import torch
 import torch.nn.functional as F
 from torch import nn
 
-from detectax_torch.models.layers import BatchNorm, Conv, ConvBN
+from detectax_torch.models.layers import (
+    BatchNorm,
+    Conv,
+    ConvBN,
+    bn_f32_stats,
+)
 from detectax_torch.ops.pool import max_pool_3x3_s2
 
 
@@ -29,13 +36,14 @@ class BottleneckBlock(nn.Module):
     def __init__(self, in_features: int, features: int, stride: int = 1,
                  groups: int = 1, expansion: int = 4, project: bool = False,
                  stride_first: bool = False, conv_bias: bool = False,
-                 torch_pad: bool = False, bn_eps: float = 1e-5):
+                 torch_pad: bool = False, bn_eps: float = 1e-5,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         s1 = stride if stride_first else 1
         s3 = 1 if stride_first else stride
         out_ch = expansion * features
         pad3 = ((1, 1), (1, 1)) if torch_pad else "SAME"
-        kw = dict(use_bias=conv_bias, bn_eps=bn_eps)
+        kw = dict(use_bias=conv_bias, bn_eps=bn_eps, dtype=dtype)
         self.proj = (
             ConvBN(in_features, out_ch, kernel=1, stride=stride, act=False,
                    **kw)
@@ -71,7 +79,8 @@ class ResNet(nn.Module):
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3),
                  width: int = 64, groups: int = 1, width_factor: int = 1,
                  expansion: int = 4, keras_compat: bool = False,
-                 torch_compat: bool = False, in_features: int = 3):
+                 torch_compat: bool = False, in_features: int = 3,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if keras_compat and torch_compat:
             raise ValueError("keras_compat and torch_compat exclude each "
@@ -83,9 +92,11 @@ class ResNet(nn.Module):
             # bias), then (1,1) zero pad + 3x3/2 VALID max pool
             self.stem = ConvBN(in_features, width, kernel=7, stride=2,
                                padding=((3, 3), (3, 3)),
-                               use_bias=keras_compat, bn_eps=bn_eps)
+                               use_bias=keras_compat, bn_eps=bn_eps,
+                               dtype=dtype)
         else:
-            self.stem = ConvBN(in_features, width, kernel=7, stride=2)
+            self.stem = ConvBN(in_features, width, kernel=7, stride=2,
+                               dtype=dtype)
         self.block_names = []
         self.out_channels = {}
         ch = width
@@ -97,7 +108,7 @@ class ResNet(nn.Module):
                     stride=2 if (blk == 0 and stage > 0) else 1,
                     groups=groups, expansion=expansion, project=(blk == 0),
                     stride_first=keras_compat, conv_bias=keras_compat,
-                    torch_pad=torch_compat, bn_eps=bn_eps,
+                    torch_pad=torch_compat, bn_eps=bn_eps, dtype=dtype,
                 )
                 name = f"stage{stage + 2}_block{blk}"
                 self.add_module(name, block)
@@ -125,18 +136,23 @@ class InvertedResidual(nn.Module):
     """MobileNetV2 inverted residual block."""
 
     def __init__(self, in_features: int, features: int, stride: int = 1,
-                 expand: int = 6, bn_eps: float = 1e-3):
+                 expand: int = 6, bn_eps: float = 1e-3,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         hidden = in_features * expand
         self.expand = (
-            ConvBN(in_features, hidden, kernel=1, act="relu6", bn_eps=bn_eps)
+            ConvBN(in_features, hidden, kernel=1, act="relu6", bn_eps=bn_eps,
+                   dtype=dtype)
             if expand != 1 else None
         )
         self.depthwise = Conv(hidden, hidden, 3, stride=stride,
-                              padding="SAME", use_bias=False, groups=hidden)
-        self.BatchNorm_0 = BatchNorm(hidden, epsilon=bn_eps)
+                              padding="SAME", use_bias=False, groups=hidden,
+                              dtype=dtype)
+        self.BatchNorm_0 = BatchNorm(
+            hidden, epsilon=bn_eps, dtype=dtype,
+            force_float32_reductions=bn_f32_stats())
         self.project = ConvBN(hidden, features, kernel=1, act=False,
-                              bn_eps=bn_eps)
+                              bn_eps=bn_eps, dtype=dtype)
         self.residual = stride == 1 and in_features == features
 
     def forward(self, x, train: bool = False):
@@ -166,14 +182,14 @@ class MobileNetV2(nn.Module):
     flax_name = "MobileNetV2_0"
 
     def __init__(self, width_mult: float = 1.0, bn_eps: float = 1e-3,
-                 in_features: int = 3):
+                 in_features: int = 3, dtype: torch.dtype = torch.float32):
         super().__init__()
 
         def c(ch):
             return max(8, int(ch * width_mult + 4) // 8 * 8)
 
         self.stem = ConvBN(in_features, c(32), kernel=3, stride=2,
-                           act="relu6", bn_eps=bn_eps)
+                           act="relu6", bn_eps=bn_eps, dtype=dtype)
         self.block_names = []
         self.out_channels = {}
         ch = c(32)
@@ -182,7 +198,7 @@ class MobileNetV2(nn.Module):
                 name = f"group{gi}_block{r}"
                 self.add_module(name, InvertedResidual(
                     ch, c(width), stride=s0 if r == 0 else 1, expand=exp,
-                    bn_eps=bn_eps,
+                    bn_eps=bn_eps, dtype=dtype,
                 ))
                 tap = {2: "c3", 4: "c4"}.get(gi) if r == reps - 1 else None
                 self.block_names.append((name, tap))
@@ -190,7 +206,7 @@ class MobileNetV2(nn.Module):
                 if tap:
                     self.out_channels[tap] = ch
         self.head_conv = ConvBN(ch, c(1280), kernel=1, act="relu6",
-                                bn_eps=bn_eps)
+                                bn_eps=bn_eps, dtype=dtype)
         self.out_channels["c5"] = c(1280)
 
     def forward(self, x, train: bool = False):
@@ -210,12 +226,14 @@ class TinyBackbone(nn.Module):
 
     flax_name = "TinyBackbone_0"
 
-    def __init__(self, width: int = 16, in_features: int = 3):
+    def __init__(self, width: int = 16, in_features: int = 3,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         widths = (width, width, width * 2, width * 4, width * 8)
         ch = in_features
         for i, w in enumerate(widths):
-            self.add_module(f"ConvBN_{i}", ConvBN(ch, w, kernel=3, stride=2))
+            self.add_module(f"ConvBN_{i}", ConvBN(ch, w, kernel=3, stride=2,
+                                                  dtype=dtype))
             ch = w
         self.out_channels = {"c3": widths[2], "c4": widths[3],
                              "c5": widths[4]}
@@ -229,7 +247,7 @@ class TinyBackbone(nn.Module):
 
 
 BACKBONES = {
-    "tiny": lambda **kw: TinyBackbone(),
+    "tiny": lambda **kw: TinyBackbone(**kw),
     "resnet50": lambda **kw: ResNet(stage_sizes=(3, 4, 6, 3), **kw),
     "resnet101": lambda **kw: ResNet(stage_sizes=(3, 4, 23, 3), **kw),
     "resnet152": lambda **kw: ResNet(stage_sizes=(3, 8, 36, 3), **kw),
@@ -241,12 +259,14 @@ BACKBONES = {
         stage_sizes=(3, 4, 23, 3), groups=32, width_factor=2, expansion=2,
         **kw,
     ),
-    "mobilenetv2": lambda **kw: MobileNetV2(),
+    "mobilenetv2": lambda **kw: MobileNetV2(**kw),
 }
 
 
-def build_backbone(name: str) -> nn.Module:
-    """Build a backbone by name, e.g. ``"resnet50"``.
+def build_backbone(name: str,
+                   dtype: torch.dtype = torch.float32) -> nn.Module:
+    """Build a backbone by name, e.g. ``"resnet50"``, computing in
+    ``dtype``.
 
     A ``:keras`` / ``:torch`` suffix (``"resnet50:keras"``,
     ``"resnext50:torch"``) builds the trunk with that zoo's exact
@@ -263,13 +283,13 @@ def build_backbone(name: str) -> nn.Module:
             f"unknown backbone {name!r}; options: {sorted(BACKBONES)}"
         )
     if compat == "none" or (compat == "keras" and name == "mobilenetv2"):
-        return BACKBONES[name]()
+        return BACKBONES[name](dtype=dtype)
     if not name.startswith("res"):
         raise ValueError(
             f"compat suffix {compat!r} unsupported for backbone {name!r}"
         )
     if compat == "keras":
-        return BACKBONES[name](keras_compat=True)
+        return BACKBONES[name](keras_compat=True, dtype=dtype)
     if compat == "torch":
-        return BACKBONES[name](torch_compat=True)
+        return BACKBONES[name](torch_compat=True, dtype=dtype)
     raise ValueError(f"unknown backbone compat {compat!r} (keras|torch)")

@@ -14,9 +14,10 @@ yet.
   objectness slot).
 
 Both take images ``[B, H, W, 3]`` and return float32 in the JAX package's
-channel-last layouts; inside they run NCHW. Sub-modules are named after
-the Flax parameter tree, so `detectax_torch.tools.from_flax` maps weights
-name for name.
+channel-last layouts; inside they run NCHW, computing in ``dtype``
+(float32 or bfloat16; the parameters stay float32). Sub-modules are named
+after the Flax parameter tree, so `detectax_torch.tools.from_flax` maps
+weights name for name.
 """
 from __future__ import annotations
 
@@ -36,16 +37,18 @@ class _S8Trunk(nn.Module):
     running statistics under ``train=True``."""
 
     def __init__(self, num_classes: int, backbone: str, features: int,
-                 freeze_bn: bool):
+                 freeze_bn: bool, dtype: torch.dtype):
         super().__init__()
         self.num_classes = int(num_classes)
         self.backbone_name = backbone
         self.features = int(features)
         self.freeze_bn = bool(freeze_bn)
-        self.backbone = build_backbone(backbone)
-        self.fpn = S8CollapseFPN(self.backbone.out_channels, features)
-        self.cls_tower = ConvTower(features, features)
-        self.reg_tower = ConvTower(features, features)
+        self.compute_dtype = dtype
+        self.backbone = build_backbone(backbone, dtype)
+        self.fpn = S8CollapseFPN(self.backbone.out_channels, features,
+                                 dtype=dtype)
+        self.cls_tower = ConvTower(features, features, dtype=dtype)
+        self.reg_tower = ConvTower(features, features, dtype=dtype)
 
     def _init(self, generator: torch.Generator | None) -> None:
         if generator is None:
@@ -64,14 +67,17 @@ class CenterNetS8(_S8Trunk):
     def __init__(self, num_classes: int, n_scales: int = 5,
                  backbone: str = "resnet50", features: int = 256,
                  freeze_bn: bool = False,
-                 generator: torch.Generator | None = None):
-        super().__init__(num_classes, backbone, features, freeze_bn)
+                 generator: torch.Generator | None = None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(num_classes, backbone, features, freeze_bn, dtype)
         self.n_scales = int(n_scales)
         for s in range(1, self.n_scales + 1):
             self.add_module(
                 f"cls_head_{s}",
-                HeadConv(features, self.num_classes, focal_bias=True))
-            self.add_module(f"reg_head_{s}", HeadConv(features, 4))
+                HeadConv(features, self.num_classes, focal_bias=True,
+                         dtype=dtype))
+            self.add_module(f"reg_head_{s}",
+                            HeadConv(features, 4, dtype=dtype))
         self._init(generator)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
@@ -93,12 +99,13 @@ class CenterNetFPNSingle(_S8Trunk):
 
     def __init__(self, num_classes: int, backbone: str = "resnet50",
                  features: int = 256, freeze_bn: bool = False,
-                 generator: torch.Generator | None = None):
-        super().__init__(num_classes, backbone, features, freeze_bn)
+                 generator: torch.Generator | None = None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(num_classes, backbone, features, freeze_bn, dtype)
         # reg head: 4 ltrb + 1 centerness; cls head: nc+1
-        self.reg_head = HeadConv(features, 5)
+        self.reg_head = HeadConv(features, 5, dtype=dtype)
         self.cls_head = HeadConv(features, self.num_classes + 1,
-                                 focal_bias=True)
+                                 focal_bias=True, dtype=dtype)
         self._init(generator)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:

@@ -15,7 +15,8 @@ All variants share: backbone C3-C5 taps → FPN P3-P7 → cross-level shared
 
 The module takes images ``[B, H, W, 3]`` and returns one
 ``[B, h, w, 5 + nc]`` float32 tensor per level — the JAX package's layouts;
-inside it runs NCHW.
+inside it runs NCHW, computing in ``dtype`` (float32 or bfloat16; the
+parameters stay float32, images enter and outputs leave in float32).
 """
 from __future__ import annotations
 
@@ -42,7 +43,8 @@ class FCOS(nn.Module):
     def __init__(self, num_classes: int, variant: str = "fcos",
                  backbone: str = "resnet50", features: int = 256,
                  freeze_bn: bool = False,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if variant not in VARIANTS:
             raise ValueError(f"unknown FCOS variant {variant!r}; "
@@ -52,21 +54,25 @@ class FCOS(nn.Module):
         self.backbone_name = backbone
         self.features = int(features)
         self.freeze_bn = bool(freeze_bn)
+        self.compute_dtype = dtype
 
-        self.backbone = build_backbone(backbone)
-        self.fpn = FPN(self.backbone.out_channels, features)
-        self.cls_tower = ConvTower(features, features)
-        self.reg_tower = ConvTower(features, features)
+        self.backbone = build_backbone(backbone, dtype)
+        self.fpn = FPN(self.backbone.out_channels, features, dtype=dtype)
+        self.cls_tower = ConvTower(features, features, dtype=dtype)
+        self.reg_tower = ConvTower(features, features, dtype=dtype)
         for i in range(1, N_LEVELS + 1):
             self.add_module(
                 f"reg_head_{i}",
-                HeadConv(features, 5 if variant == "fcos" else 4))
+                HeadConv(features, 5 if variant == "fcos" else 4,
+                         dtype=dtype))
             if variant != "fcos":
                 self.add_module(
-                    f"cen_head_{i}", HeadConv(features, 1, focal_bias=True))
+                    f"cen_head_{i}",
+                    HeadConv(features, 1, focal_bias=True, dtype=dtype))
             self.add_module(
                 f"cls_head_{i}",
-                HeadConv(features, self.num_classes, focal_bias=True))
+                HeadConv(features, self.num_classes, focal_bias=True,
+                         dtype=dtype))
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         init_parameters(self, generator)

@@ -8,11 +8,14 @@ convs, stride-2 P6 from C5 and P7 from relu(P6).
 `S8CollapseFPN` builds P6/P7 from P5_1x1, then runs a full top-down
 residual chain P7→P6→P5→P4→P3 that collapses into one stride-8 feature
 map (the neck of the ResNet-backbone CenterNet family).
+
+``dtype`` is the compute dtype of every conv.
 """
 from __future__ import annotations
 
 from typing import Mapping
 
+import torch
 import torch.nn.functional as F
 from torch import nn
 
@@ -20,16 +23,18 @@ from detectax_torch.models.layers import Conv, _upsample_to_nchw
 
 
 class FPN(nn.Module):
-    def __init__(self, in_channels: Mapping[str, int], features: int = 256):
+    def __init__(self, in_channels: Mapping[str, int], features: int = 256,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.c3_1x1 = Conv(in_channels["c3"], features, 1)
-        self.c4_1x1 = Conv(in_channels["c4"], features, 1)
-        self.c5_1x1 = Conv(in_channels["c5"], features, 1)
-        self.c3_3x3 = Conv(features, features, 3)
-        self.c4_3x3 = Conv(features, features, 3)
-        self.c5_3x3 = Conv(features, features, 3)
-        self.c6_3x3 = Conv(in_channels["c5"], features, 3, stride=2)
-        self.c7_3x3 = Conv(features, features, 3, stride=2)
+        self.c3_1x1 = Conv(in_channels["c3"], features, 1, dtype=dtype)
+        self.c4_1x1 = Conv(in_channels["c4"], features, 1, dtype=dtype)
+        self.c5_1x1 = Conv(in_channels["c5"], features, 1, dtype=dtype)
+        self.c3_3x3 = Conv(features, features, 3, dtype=dtype)
+        self.c4_3x3 = Conv(features, features, 3, dtype=dtype)
+        self.c5_3x3 = Conv(features, features, 3, dtype=dtype)
+        self.c6_3x3 = Conv(in_channels["c5"], features, 3, stride=2,
+                           dtype=dtype)
+        self.c7_3x3 = Conv(features, features, 3, stride=2, dtype=dtype)
 
     def forward(self, taps):
         p3_1x1 = self.c3_1x1(taps["c3"])
@@ -53,14 +58,15 @@ class FPN(nn.Module):
 class S8CollapseFPN(nn.Module):
     """Top-down chain collapsed to one stride-8 map."""
 
-    def __init__(self, in_channels: Mapping[str, int], features: int = 256):
+    def __init__(self, in_channels: Mapping[str, int], features: int = 256,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.c3_1x1 = Conv(in_channels["c3"], features, 1)
-        self.c4_1x1 = Conv(in_channels["c4"], features, 1)
-        self.c5_1x1 = Conv(in_channels["c5"], features, 1)
-        self.c6_3x3 = Conv(features, features, 3, stride=2)
-        self.c7_3x3 = Conv(features, features, 3, stride=2)
-        self.cnn_feature_map = Conv(features, features, 3)
+        self.c3_1x1 = Conv(in_channels["c3"], features, 1, dtype=dtype)
+        self.c4_1x1 = Conv(in_channels["c4"], features, 1, dtype=dtype)
+        self.c5_1x1 = Conv(in_channels["c5"], features, 1, dtype=dtype)
+        self.c6_3x3 = Conv(features, features, 3, stride=2, dtype=dtype)
+        self.c7_3x3 = Conv(features, features, 3, stride=2, dtype=dtype)
+        self.cnn_feature_map = Conv(features, features, 3, dtype=dtype)
 
     def forward(self, taps):
         p3_1x1 = self.c3_1x1(taps["c3"])

@@ -12,6 +12,7 @@ The hourglass blocks of the JAX file are not ported yet.
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 import torch.nn.functional as F
@@ -23,60 +24,109 @@ from detectax_torch.ops.pool import pad_same
 FOCAL_BIAS = math.log(0.01 / 0.99)
 
 
+def bn_f32_stats() -> bool:
+    """Whether BatchNorm statistics reduce in float32 (the default).
+    ``DETECTAX_BN_BF16_STATS=1`` reduces them in the compute dtype instead
+    — the JAX package's switch of the same name, which has an effect under
+    bf16 compute only. Read where a block with BatchNorm is built."""
+    return os.environ.get("DETECTAX_BN_BF16_STATS", "0") != "1"
+
+
+def bn_stat_subset() -> int:
+    """Batch-subset divisor for BatchNorm statistics:
+    ``DETECTAX_BN_STAT_SUBSET=k`` takes the batch statistics from the first
+    ``B // k`` examples when ``B >= k`` (the full batch is still normalized
+    and the running averages still move). 0 or 1: the whole batch. The JAX
+    package's switch of the same name, read at every training forward."""
+    try:
+        return int(os.environ.get("DETECTAX_BN_STAT_SUBSET", "0"))
+    except ValueError:
+        return 0
+
+
 class BatchNorm(nn.Module):
     """BatchNorm over the channel dim of an NCHW tensor, with the Flax
     module's parameters (`weight`/`bias` = scale/bias, `running_mean`,
     `running_var`).
 
     ``train=True`` normalizes with the batch's statistics — mean and the
-    *biased* variance ``max(E[x²] − E[x]², 0)``, reduced in float32 — and
-    moves the running averages to ``m·old + (1−m)·new`` with that same
-    biased variance (``m = momentum``, 0.9 as in Flax). PyTorch's own
+    *biased* variance ``max(E[x²] − E[x]², 0)``, reduced in float32 (in
+    ``dtype`` when ``force_float32_reductions`` is off) over the first
+    ``B // k`` examples under `bn_stat_subset` ``k`` — and moves the
+    running averages to ``m·old + (1−m)·new`` with that same biased
+    variance (``m = momentum``, 0.9 as in Flax). PyTorch's own
     ``F.batch_norm(training=True)`` stores the unbiased variance and means
     by momentum the weight of the new value, so it is not used here. The
-    buffers are updated in place, outside autograd.
+    buffers are updated in place, outside autograd, and stay float32.
+
+    ``dtype`` is the compute dtype: as Flax's ``promote_dtype`` does, the
+    input, mean, variance, scale and bias are all cast to it and the
+    normalization runs in it (torch would otherwise promote a bf16 input
+    against the float32 statistics and normalize in float32).
     """
 
     def __init__(self, features: int, epsilon: float = 1e-5,
-                 momentum: float = 0.9):
+                 momentum: float = 0.9, dtype: torch.dtype = torch.float32,
+                 force_float32_reductions: bool = True):
         super().__init__()
         self.epsilon = float(epsilon)
         self.momentum = float(momentum)
+        self.compute_dtype = dtype
+        self.force_float32_reductions = bool(force_float32_reductions)
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        dtype = self.compute_dtype
         if train:
-            xr = x.to(torch.float32)
+            sub = bn_stat_subset()
+            xs = x
+            if sub > 1 and x.shape[0] >= sub:
+                xs = x[: x.shape[0] // sub]
+            red = torch.float32 if self.force_float32_reductions else dtype
+            xr = xs.to(red)
             mean = xr.mean(dim=(0, 2, 3))
             mean2 = torch.square(xr).mean(dim=(0, 2, 3))
             var = torch.clamp_min(mean2 - torch.square(mean), 0.0)
             with torch.no_grad():
                 m = self.momentum
-                self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
-                self.running_var.mul_(m).add_(var, alpha=1.0 - m)
-            shape = (1, -1, 1, 1)
-            return ((x - mean.view(shape))
-                    * torch.rsqrt(var.view(shape) + self.epsilon)
-                    * self.weight.view(shape) + self.bias.view(shape))
-        return F.batch_norm(
-            x, self.running_mean, self.running_var, self.weight, self.bias,
-            False, 0.0, self.epsilon,
-        )
+                self.running_mean.mul_(m).add_(
+                    mean.to(torch.float32), alpha=1.0 - m)
+                self.running_var.mul_(m).add_(
+                    var.to(torch.float32), alpha=1.0 - m)
+        elif dtype == torch.float32:
+            return F.batch_norm(
+                x.to(dtype), self.running_mean, self.running_var,
+                self.weight, self.bias, False, 0.0, self.epsilon,
+            )
+        else:
+            mean, var = self.running_mean, self.running_var
+        shape = (1, -1, 1, 1)
+        xd, mean, var, scale, bias = (
+            t.to(dtype) for t in (x, mean, var, self.weight, self.bias))
+        return ((xd - mean.view(shape))
+                * torch.rsqrt(var.view(shape) + self.epsilon)
+                * scale.view(shape) + bias.view(shape))
 
 
 class Conv(nn.Conv2d):
     """``nn.Conv2d`` with the JAX package's padding vocabulary: "SAME"
     (XLA's, asymmetric under stride, see `ops.pool.same_pad`), "VALID", or
-    explicit ``((top, bottom), (left, right))``."""
+    explicit ``((top, bottom), (left, right))``.
+
+    ``dtype`` is the compute dtype: the input, the weight and the bias are
+    cast to it inside `forward` (Flax's ``promote_dtype``), so the
+    parameters stay float32 and autograd carries the gradient back to
+    them through the cast."""
 
     def __init__(self, in_features: int, features: int, kernel: int,
                  stride: int = 1, padding="SAME", use_bias: bool = True,
-                 groups: int = 1):
+                 groups: int = 1, dtype: torch.dtype = torch.float32):
         super().__init__(in_features, features, kernel, stride=stride,
                          padding=0, bias=use_bias, groups=groups)
+        self.compute_dtype = dtype
         if isinstance(padding, str):
             if padding not in ("SAME", "VALID"):
                 raise ValueError(f"unknown padding {padding!r}")
@@ -86,11 +136,15 @@ class Conv(nn.Conv2d):
             self.pad_mode = (int(l), int(r), int(t), int(b))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = self.compute_dtype
+        x = x.to(dtype)
         if self.pad_mode == "SAME":
             x = pad_same(x, self.kernel_size[0], self.stride[0])
         elif self.pad_mode != "VALID":
             x = F.pad(x, self.pad_mode)
-        return super().forward(x)
+        bias = None if self.bias is None else self.bias.to(dtype)
+        return F.conv2d(x, self.weight.to(dtype), bias, self.stride, 0,
+                        self.dilation, self.groups)
 
 
 def upsample2x(x: torch.Tensor, method: str = "nearest") -> torch.Tensor:
@@ -156,13 +210,15 @@ class ConvBN(nn.Module):
     latter reproduces the Keras/torch ZeroPadding+valid stem convention.
     `s2d=True` asks the JAX package for a space-to-depth evaluation of a
     7x7/s2 stem; that is the same function of the same parameters, and the
-    port always evaluates it as the plain 7x7 conv it equals.
+    port always evaluates it as the plain 7x7 conv it equals. ``dtype`` is
+    the compute dtype of both layers; `bn_f32_stats` is read here, when the
+    block is built.
     """
 
     def __init__(self, in_features: int, features: int, kernel: int = 3,
                  stride: int = 1, use_bias: bool = False, act=True,
                  groups: int = 1, padding="SAME", s2d: bool = False,
-                 bn_eps: float = 1e-5):
+                 bn_eps: float = 1e-5, dtype: torch.dtype = torch.float32):
         super().__init__()
         if s2d and not (kernel == 7 and stride == 2 and groups == 1):
             raise ValueError("s2d applies to 7x7 / stride-2 stems only")
@@ -170,8 +226,11 @@ class ConvBN(nn.Module):
             raise ValueError(f"unknown activation {act!r}")
         self.act = act
         self.Conv_0 = Conv(in_features, features, kernel, stride=stride,
-                           padding=padding, use_bias=use_bias, groups=groups)
-        self.BatchNorm_0 = BatchNorm(features, epsilon=bn_eps)
+                           padding=padding, use_bias=use_bias, groups=groups,
+                           dtype=dtype)
+        self.BatchNorm_0 = BatchNorm(
+            features, epsilon=bn_eps, dtype=dtype,
+            force_float32_reductions=bn_f32_stats())
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         x = self.BatchNorm_0(self.Conv_0(x), train)

@@ -5,8 +5,9 @@ Port of `detectax/ops/assign.py`'s FCOS assigners — all-in-box
 centroid-only offset+scale variant (`fcos_center_v1_assign`), each with
 its one-level function and the helpers — and of the two assigners of the
 ResNet-backbone CenterNet family (`centernet_scale_slot_assign`,
-`centernet_heatmap_assign`); the other assigners of that file are not
-ported yet. Each is a broadcast-and-reduce
+`centernet_heatmap_assign`) and RetinaNet's anchor-IoU matching
+(`retinanet_assign`); the hourglass assigners of that file are not ported
+yet. Each is a broadcast-and-reduce
 over a padded ground-truth array. The JAX package writes the assignment
 for one image and maps it over the batch; here the batch dimension is
 written out, so every function takes a whole padded batch.
@@ -30,6 +31,9 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
+
+from detectax_torch.ops.anchors import anchor_boxes_level
+from detectax_torch.ops.boxes import pairwise_iou_center
 
 NEG_INF = -1e30
 EPS = 1e-8
@@ -677,3 +681,96 @@ def centernet_heatmap_assign(
     )
     out = out * has[..., None].to(torch.float32)
     return out, gt_valid.sum(dim=-1, dtype=torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# RetinaNet anchor-IoU assignment
+# ---------------------------------------------------------------------------
+
+
+def retinanet_assign_level(
+    gt_yxhw: torch.Tensor,
+    gt_labels: torch.Tensor,
+    gt_valid: torch.Tensor,
+    *,
+    img_dim: tuple,
+    img_pad: tuple,
+    num_classes: int,
+    stride: int,
+    anchors_hw: torch.Tensor,
+    iou_thresh: float = 0.5,
+):
+    """One level of anchor-IoU matching for a padded batch.
+
+    Anchors are centred at ``(cell_y * stride, cell_x * stride)`` with the
+    per-anchor ``(h, w)`` of ``anchors_hw [A, 2]``; every anchor whose IoU
+    with a valid box is above ``iou_thresh`` (strictly) is positive, owned
+    by its box of largest IoU (the lowest index among equal IoUs).
+    Regression is ``((a_y - gt_y)/a_h, (a_x - gt_x)/a_w, gt_h/a_h,
+    gt_w/a_w)``. The IoU is `ops.boxes.pairwise_iou_center` in the JAX
+    package's order of operations, so an anchor at IoU ~ 0.5 falls on the
+    same side of the threshold.
+
+    Returns ``([B, hm, wm, A, 4+nc], count [B])``: the count is the number
+    of matched (box, anchor) pairs, not of positive anchors.
+    """
+    dev = gt_yxhw.device
+    gt_yxhw = gt_yxhw.to(torch.float32)
+    hm = int(img_pad[0]) // stride
+    wm = int(img_pad[1]) // stride
+    anchor_boxes = anchor_boxes_level(hm, wm, stride, anchors_hw,
+                                      device=dev).reshape(-1, 4)  # [M, 4]
+    n_anchor = anchors_hw.shape[0]
+
+    y_c, x_c, bh, bw = _gt_pixels(gt_yxhw, img_dim)       # [B, N] each
+    gt_boxes = torch.stack([y_c, x_c, bh, bw], dim=-1)    # [B, N, 4]
+    iou = pairwise_iou_center(gt_boxes, anchor_boxes[None])  # [B, N, M]
+    iou = torch.where(gt_valid.to(torch.bool)[:, :, None], iou,
+                      torch.full((), -1.0, device=dev))
+    matched = iou > iou_thresh
+    best_gt = _first_argmax(iou.transpose(1, 2)).to(torch.int64)  # [B, M]
+    has = matched.any(dim=1)                              # [B, M]
+
+    def pick(v):
+        return torch.take_along_dim(v, best_gt, dim=1)
+
+    a_yx = anchor_boxes[:, :2]
+    a_hw = anchor_boxes[:, 2:]
+    reg = torch.cat([
+        (a_yx - torch.stack([pick(y_c), pick(x_c)], dim=-1)) / a_hw,
+        torch.stack([pick(bh), pick(bw)], dim=-1) / a_hw,
+    ], dim=-1)
+    cls = _one_hot(pick(gt_labels.to(torch.int64)), num_classes)
+    has_f = has[..., None].to(torch.float32)
+    out = torch.cat([reg * has_f, cls * has_f], dim=-1)
+    out = out.reshape(gt_yxhw.shape[0], hm, wm, n_anchor, 4 + num_classes)
+    return out, matched.sum(dim=(1, 2), dtype=torch.int32)
+
+
+def retinanet_assign(
+    gt_yxhw: torch.Tensor,
+    gt_labels: torch.Tensor,
+    gt_valid: torch.Tensor,
+    *,
+    img_dim: tuple,
+    img_pad: tuple | None = None,
+    num_classes: int,
+    anchors_per_level: Sequence[torch.Tensor],
+    strides: Sequence[int] = FCOS_STRIDES,
+    iou_thresh: float = 0.5,
+):
+    """All-level anchor matching of a padded batch; ``anchors_per_level[l]``
+    is ``[A, 2]`` (h, w). Returns (tuple of maps ``[B, hm, wm, A, 4+nc]``,
+    count ``[B]`` of matched (box, anchor) pairs over the levels)."""
+    _check_batch(gt_yxhw)
+    img_pad = img_pad or img_dim
+    outs, count = [], None
+    for stride, anchors_hw in zip(strides, anchors_per_level):
+        o, n = retinanet_assign_level(
+            gt_yxhw, gt_labels, gt_valid,
+            img_dim=img_dim, img_pad=img_pad, num_classes=num_classes,
+            stride=stride, anchors_hw=anchors_hw, iou_thresh=iou_thresh,
+        )
+        outs.append(o)
+        count = n if count is None else count + n
+    return tuple(outs), count

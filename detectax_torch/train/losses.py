@@ -1,8 +1,9 @@
 """Loss compositions over the shared `ops.losses` library.
 
 Port of `detectax/train/losses.py::fcos_loss` (which also serves the
-single-map heatmap CenterNet, as one level) and `centernet_s8_loss`; the
-other detectors' compositions of that file are not ported yet. Each
+single-map heatmap CenterNet, as one level), `centernet_s8_loss` and
+`retinanet_loss`; the hourglass compositions of that file are not ported
+yet. Each
 returns per-example-sum
 scalars; the train step divides by the batch size, or by ``num_pos`` — the
 number of positive cells in the batch, which the dict carries — under
@@ -12,12 +13,13 @@ The classification term is the focal loss. On a CUDA tensor it is the
 hand-written kernel, with no switch to turn on: `fcos_loss` hands every
 level's class channels (and, under ``cen_type="focal"``, every level's
 centerness) to one call of `detectax_torch.kernels.focal.focal_loss_group`
-— one forward and one backward launch a step — and `centernet_s8_loss`
-calls `focal_loss`. On a CPU tensor, or with ``kernels="plain"``, they run
+— one forward and one backward launch a step — as `retinanet_loss` does
+with its five levels' class channels, and `centernet_s8_loss` calls
+`focal_loss`. On a CPU tensor, or with ``kernels="plain"``, they run
 the plain versions (`focal_loss_group_plain`, which is
 `detectax_torch.ops.losses.focal_loss` once a segment). The class channels
-``y[..., 5:]`` are strided views of the level maps: the kernel's wrapper
-reads them in place by their row stride.
+``y[..., 5:]`` (RetinaNet: ``y[..., 4:]``) are strided views of the level
+maps: the kernel's wrapper reads them in place by their row stride.
 """
 from __future__ import annotations
 
@@ -115,3 +117,35 @@ def centernet_s8_loss(
     total = cls_lambda * cls_loss + reg_lambda * reg_loss
     return {"cls": cls_loss, "reg": reg_loss, "total": total,
             "num_pos": mask.sum()}
+
+
+def retinanet_loss(
+    y_true: Sequence[torch.Tensor],
+    y_pred: Sequence[torch.Tensor],
+    *,
+    cls_lambda: float = 1.0,
+    reg_lambda: float = 1.0,
+    kernels=None,
+) -> dict:
+    """Anchor loss over five levels of ``[B, h, w, A, 4+nc]`` maps: focal
+    on the class channels — all five levels in one `focal_loss_group`
+    call, the sums added in the JAX loop's order — and smooth-L1 on the
+    regression masked to the anchors with a positive class target
+    (``max(cls) > 0``). ``num_pos`` counts those anchors. ``kernels`` as
+    in `fcos_loss`."""
+    _, focal_group = _focal_fns(kernels)
+    levels = list(zip(y_true, y_pred))
+    sums = focal_group([(yt[..., 4:], yp[..., 4:]) for yt, yp in levels])
+    sums = sums.unbind(0)
+    cls_loss = 0.0
+    reg_loss = 0.0
+    num_pos = 0.0
+    for i, (yt, yp) in enumerate(levels):
+        mask = (yt[..., 4:].amax(dim=-1) > 0).to(torch.float32)
+        num_pos = num_pos + mask.sum()
+        cls_loss = cls_loss + sums[i]
+        reg_loss = reg_loss + smooth_l1_loss(
+            yt[..., :4], yp[..., :4], mask=mask)
+    total = cls_lambda * cls_loss + reg_lambda * reg_loss
+    return {"cls": cls_loss, "reg": reg_loss, "total": total,
+            "num_pos": num_pos}

@@ -686,8 +686,9 @@ def test_infer_cli_reads_weights_written_from_jax_trees(tmp_path, kind):
     ids=["heatmap", "crowdhuman"])
 def test_train_clis_refuse_what_is_not_ported_and_need_a_device(
         tmp_path, main):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        main(_cli_args(tmp_path, "--bf16"))
+    # --bf16 is ported: it trains (bf16 compute, float32 parameters)
+    summary = main(_cli_args(tmp_path, "--bf16", "--max_steps", "1"))
+    assert summary["final_step"] == 1 and np.isfinite(summary["total"])
     if main is train_centernet_heatmap.main:
         # as in the JAX package, this trainer has no visual hook
         with pytest.raises(NotImplementedError, match="no visual hook"):

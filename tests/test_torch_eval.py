@@ -10,7 +10,8 @@
   against `detectax.cli.evaluate` on the same synthetic images, for the
   families `fcos` and `centernet_heatmap` at `top_k` >= `max_outputs`
   (the JAX CLI fails below that); the port alone at `--top_k 16`; the
-  families and flags that wait for a later slice raise.
+  families and flags that wait for a later slice raise (the `retinanet`
+  family is held against the JAX CLI in `tests/test_torch_retinanet.py`).
 * `--dump_visuals` draws through the port's eval hooks, and raises at
   start-up, naming matplotlib, where it is missing.
 """
@@ -271,7 +272,7 @@ def test_evaluate_cli_small_pool_and_checkpoint(tmp_path):
 @pytest.mark.parametrize("argv,match", [
     (["--family", "hourglass"], "hourglass half"),
     (["--family", "stacked_hourglass"], "hourglass half"),
-    (["--family", "retinanet"], "RetinaNet"),
+    (["--family", "hourglass", "--n_filters", "8"], "hourglass half"),
     (["--data_parallel"], "Parallelism")])
 def test_evaluate_cli_refuses_what_waits(argv, match):
     with pytest.raises(NotImplementedError, match=match):

@@ -272,5 +272,10 @@ def test_center_clis_train_on_the_cpu(tmp_path, main, extra):
                     "--out_dir", str(tmp_path / "out"), *extra])
     assert summary["final_step"] == 2 and np.isfinite(summary["total"])
     assert CheckpointManager(str(tmp_path / "ckpt")).latest_step() == 2
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        main(["--device", "cpu", "--bf16"])
+    # --bf16 is ported: one step in bf16 compute
+    summary = main(["--device", "cpu", "--backbone", "tiny", "--canvas",
+                    "64", "--batch_size", "2", "--synthetic_n", "4",
+                    "--max_steps", "1", "--display_step", "1", "--bf16",
+                    "--ckpt_dir", str(tmp_path / "ckpt16"),
+                    "--out_dir", str(tmp_path / "out16"), *extra])
+    assert summary["final_step"] == 1 and np.isfinite(summary["total"])

@@ -138,7 +138,9 @@ def test_every_port_module_imports_without_a_build():
                 "cli.train_centernet_heatmap",
                 "cli.train_centernet_crowdhuman", "data.detbench",
                 "eval.detection_metrics", "cli.evaluate", "cli._eval_hooks",
-                "cli.train_fcos_center_voc", "cli.train_fcos_center_v1_voc"):
+                "cli.train_fcos_center_voc", "cli.train_fcos_center_v1_voc",
+                "ops.anchors", "models.retinanet", "cli.train_retinanet_coco",
+                "cli.infer_retinanet"):
         assert f"detectax_torch.{new}" in mods
     code = (
         "import importlib, sys\n"

@@ -528,13 +528,15 @@ def test_train_fcos_cli_two_steps_and_resume(tmp_path, capsys):
 @pytest.mark.parametrize("flag", [
     ("--bf16",), ("--dump_visuals",), ("--dataset", "detbench")])
 def test_train_fcos_cli_flags_that_wait_raise(tmp_path, monkeypatch, flag):
-    """`--bf16` still waits and raises; `--dump_visuals` and the DetBench
-    datasets are ported and train (DetBench cut to 4 training images of
-    its spec, cached under the test's directory)."""
+    """Every one of these flags is ported now and trains: `--bf16` (a
+    bf16 compute dtype, float32 parameters), `--dump_visuals` and the
+    DetBench datasets (cut to 4 training images of its spec, cached under
+    the test's directory)."""
     args = _cli_args(tmp_path, "--max_steps", "1", *flag)
     if flag == ("--bf16",):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            t_train_fcos.main(args)
+        summary = t_train_fcos.main(args)
+        assert summary["final_step"] == 1 and np.isfinite(summary["total"])
+        assert CheckpointManager(str(tmp_path / "ckpt")).latest_step() == 1
         return
     from detectax_torch.data import detbench
 
