@@ -106,7 +106,27 @@ order:
    path and 3 on the plain path (step 1 to 1e-4, the last step to
    `BF16_LATER_RTOL`, 2e-2), and 3 RetinaNet-R101 bf16 steps at 512 px,
    each step's ms beside the float32 step's;
-11. prints one JSON line ``{"kernels": [...]}`` and, last, the ``ok`` line.
+11. the hourglass half of the CenterNet family at the TPU rows' widths
+   (`HourglassNet` n_filters 12, `StackedHourglass` n_filters 64 with two
+   stacks; 20 classes, 320 px, 6,400 candidates an image): serves both
+   through `Predictor` with buckets (1, 8) and the request mix with the
+   default NMS (dense kernel) and with combined-NMS candidates (top-k +
+   sweep kernel), each against the same path on the plain versions;
+   trains each at its TPU row's batch (32, 16) for 3 steps on the kernel
+   path and 3 on the plain path (Adam, the epoch schedule; `HourglassNet`
+   with the focal class loss), step 1 to 1e-4 and the BatchNorm
+   statistics moved, then 2 bf16 steps; trains 2 steps of
+   `cli.train_hourglass_voc --variant stacked --multi_scale 256 320` and
+   of the sigmoid `HourglassNet` on the synthetic set (microbatches of 2)
+   and serves one request from the stacked checkpoint; trains 2 steps of
+   the TPU DetBench v2 row's command line and evaluates the 256 eval
+   images (`cli.evaluate --family stacked_hourglass`) on the kernels and
+   on the plain versions, summaries equal. Phase 3 holds the kernels at
+   these shapes first: the two class terms read in place (`[16, 80, 80,
+   20]` of 24 and `[32, 40, 40, 4, 21]` of 25, each bitwise equal to its
+   contiguous clone) and `dense_nms` at B = 8, M = 6,400 and 12,544 (the
+   448 bucket);
+12. prints one JSON line ``{"kernels": [...]}`` and, last, the ``ok`` line.
 
 It imports `detectax_torch` only — nothing of JAX or of `detectax`.
 """
@@ -127,6 +147,7 @@ from detectax_torch import runtime
 from detectax_torch.infer.export import (
     centernet_decode_fn,
     fcos_decode_fn,
+    hourglass_decode_fn,
     make_serving_fn,
     retinanet_decode_fn,
 )
@@ -140,8 +161,11 @@ from detectax_torch.models import (
     FCOS,
     CenterNetFPNSingle,
     CenterNetS8,
+    HourglassNet,
     RetinaNet,
+    StackedHourglass,
 )
+from detectax_torch.models.layers import BatchNorm
 from detectax_torch.ops.anchors import anchor_shapes_per_level
 from detectax_torch.ops.assign import (
     centernet_heatmap_assign,
@@ -149,16 +173,21 @@ from detectax_torch.ops.assign import (
     fcos_assign,
     fcos_center_assign,
     fcos_center_v1_assign,
+    hourglass_assign,
     retinanet_assign,
+    stacked_hourglass_assign,
 )
 from detectax_torch.train.driver import restore_for_inference
 from detectax_torch.train.loop import create_train_state, make_train_step
 from detectax_torch.train.losses import (
     centernet_s8_loss,
     fcos_loss,
+    hourglass_loss,
     retinanet_loss,
+    stacked_hourglass_loss,
 )
 from detectax_torch.train.schedules import (
+    epoch_decay,
     exponential_with_floor,
     global_norm,
     make_optimizer,
@@ -521,14 +550,14 @@ def library_focal(labels, logits, alpha=0.25, gamma=2.0):
 
 
 def check_focal(rng, hw, *, case="dense", classes=NUM_CLASSES, slots=None,
-                lead=5):
+                lead=5, batch=FOCAL_BATCH):
     """Forward sum and dlogits of the focal kernel against its plain
     version on ``[16, hw, hw, classes]`` (``[16, hw, hw, slots, classes]``
     with `slots`, the scale-slot map). `case`: "dense" (contiguous),
     "weights" (with a 0/1 mask), "extreme" (logits in {-100, -40, 0, 40,
     100}), "strided" (the class channels of a map with `lead` more
     channels before them, read in place)."""
-    shape = ((FOCAL_BATCH, hw, hw) + ((slots,) if slots else ())
+    shape = ((batch, hw, hw) + ((slots,) if slots else ())
              + (classes,))
     labels = (rng.uniform(size=shape) < 0.01).astype(np.float32)
     if case == "extreme":
@@ -617,7 +646,7 @@ def check_focal(rng, hw, *, case="dense", classes=NUM_CLASSES, slots=None,
     bwd_bound_ms, _ = bound(n * (per_el + 4) + 4,
                             n * (FOCAL_BWD_FLOPS + extra))
     return {
-        "shape": {"B": FOCAL_BATCH, "h": hw, "w": hw, "slots": slots,
+        "shape": {"B": batch, "h": hw, "w": hw, "slots": slots,
                   "classes": classes, "case": case,
                   "row_stride": (lead + classes if case == "strided"
                                  else classes)},
@@ -1151,20 +1180,20 @@ PATHS_RTOL = 1e-4  # kernel path against plain path, and split against unsplit
 
 
 def train_batch(seed: int, canvas: int | None = None,
-                nc: int = NUM_CLASSES) -> dict:
-    """A seeded numpy batch: normal images (`CANVAS` pixels a side unless
-    `canvas` is given), 16 boxes an image around the centre, all valid,
-    labels drawn from `nc` classes."""
+                nc: int = NUM_CLASSES, batch: int = TRAIN_BATCH) -> dict:
+    """A seeded numpy batch of `batch` images: normal images (`CANVAS`
+    pixels a side unless `canvas` is given), 16 boxes an image around the
+    centre, all valid, labels drawn from `nc` classes."""
     canvas = canvas or CANVAS
     rng = np.random.default_rng(seed)
-    shape = (TRAIN_BATCH, TRAIN_BOXES)
+    shape = (batch, TRAIN_BOXES)
     boxes = np.zeros(shape + (4,), np.float32)
     boxes[:, :, 0] = rng.uniform(0.3, 0.7, shape)
     boxes[:, :, 1] = rng.uniform(0.3, 0.7, shape)
     boxes[:, :, 2] = rng.uniform(0.05, 0.5, shape)
     boxes[:, :, 3] = rng.uniform(0.05, 0.5, shape)
     return {
-        "images": rng.normal(size=(TRAIN_BATCH, canvas, canvas, 3))
+        "images": rng.normal(size=(batch, canvas, canvas, 3))
         .astype(np.float32),
         "boxes": boxes,
         "labels": rng.integers(0, nc, shape).astype(np.int32),
@@ -1602,10 +1631,11 @@ def kernel_and_plain_steps(name, make, assign, batches, *, warmup):
     b0 = batches[0]
     assign_ms = time_ms(lambda: assign(
         b0["boxes"], b0["labels"], b0["valid"]), warmup=1, reps=5)
+    batch = int(batches[0]["images"].shape[0])
     return counts, {
-        "batch": TRAIN_BATCH, "steps": steps,
+        "batch": batch, "steps": steps,
         "step_ms": step_ms, "plain_path_step_ms": plain_ms,
-        "images_per_s": TRAIN_BATCH * steps / wall,
+        "images_per_s": batch * steps / wall,
         "peak_memory_bytes": peak_mem, "assign_ms": assign_ms,
         "metrics_step_1": metrics[0], "metrics_last": metrics[-1],
         "plain_metrics_step_1": plain_metrics[0],
@@ -2437,6 +2467,447 @@ def bf16_train_path(fp32_step_ms, retinanet_fp32_step_ms):
 
 
 # --------------------------------------------------------------------------
+# phase 11: the hourglass half of the CenterNet family
+# --------------------------------------------------------------------------
+
+HG_CANVAS = 320
+# family: (TPU row's batch, candidates an image at 320 px)
+HG_MODELS = {"hourglass": (32, 4 * (HG_CANVAS // 8) ** 2),       # 6,400
+             "stacked_hourglass": (16, (HG_CANVAS // 4) ** 2)}  # 6,400
+HG_BIG_CANDIDATES = (448 // 4) ** 2    # the 448 bucket: 12,544 either way
+HG_PATHS = {"dense_nms": {}, "nms_sweep": dict(class_aware_candidates=True)}
+HG_STEPS, HG_BF16_STEPS, HG_CLI_STEPS = 3, 2, 2
+HG_MICROBATCH = 2   # the trainer's default, which the TPU row kept
+# the TPU rows' widths (`benchmarks/run_detbench.py`), and the buckets of
+# the multi-scale trainer run
+HG_WIDTHS = {"hourglass": 12, "stacked_hourglass": 64}
+HG_STACKS = 2
+HG_BUCKETS = (256, 320)
+
+
+def check_focal_hourglass():
+    """The class terms of the two hourglass losses as they hand them to
+    `focal_loss`, read in place: channels 4: of `StackedHourglass`'s
+    ``[16, 80, 80, 24]`` map (20 of 24 columns, 2,048,000 elements) and of
+    `HourglassNet`'s ``[32, 40, 40, 4, 25]`` (objectness and classes, 21 of
+    25, 4,300,800). Each against its plain version (`check_focal`), and its
+    sum and dlogits bitwise equal to those of a contiguous clone."""
+    rng = np.random.default_rng(SEED + 13)
+    rows = [check_focal(rng, HG_CANVAS // 4, case="strided",
+                        classes=NUM_CLASSES, lead=4),
+            check_focal(rng, HG_CANVAS // 8, case="strided",
+                        classes=NUM_CLASSES + 1, slots=4, lead=4, batch=32)]
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 13)
+    for row, shape in zip(rows, ((16, 80, 80, 4 + NUM_CLASSES),
+                                 (32, 40, 40, 4, 5 + NUM_CLASSES))):
+        z = (torch.rand(shape, generator=gen, device=DEV) < 0.01).float()
+        x = 4.0 * torch.randn(shape, generator=gen, device=DEV)
+        sums, grads = [], []
+        for zz, xx in ((z[..., 4:], x[..., 4:]),
+                       (z[..., 4:].clone(), x[..., 4:].clone())):
+            leaf = xx.detach().requires_grad_(True)
+            total = KF.focal_loss(zz, leaf)
+            total.backward()
+            sums.append(total.detach())
+            grads.append(leaf.grad)
+        torch.cuda.synchronize()
+        check(torch.equal(sums[0], sums[1])
+              and torch.equal(grads[0], grads[1]),
+              f"focal {shape}[..., 4:]: the view and its clone give other "
+              f"bits")
+        row["bitwise_equal_to_clone"] = True
+        row["shape"]["case"] = ("stacked_hourglass" if len(shape) == 4
+                                else "hourglass")
+    return rows
+
+
+def build_hourglass(family, dtype=torch.float32):
+    """The TPU rows' widths: `HourglassNet` ``n_filters`` 12,
+    `StackedHourglass` ``n_filters`` 64 with two stacks; 20 classes,
+    seeded weights."""
+    gen = torch.Generator().manual_seed(SEED)
+    if family == "hourglass":
+        return HourglassNet(num_classes=NUM_CLASSES,
+                            n_filters=HG_WIDTHS[family], dtype=dtype,
+                            generator=gen)
+    return StackedHourglass(num_classes=NUM_CLASSES,
+                            n_filters=HG_WIDTHS[family], n_stacks=HG_STACKS,
+                            dtype=dtype, generator=gen)
+
+
+def hourglass_scores(family, out, bias):
+    """The best score of each candidate with the focal bias ``bias``."""
+    if family == "hourglass":
+        obj = torch.sigmoid(out[..., 4] + bias)
+        return (obj * torch.sigmoid(out[..., 5:] + bias).amax(-1)).flatten()
+    return torch.sigmoid(out[..., 4:] + bias).amax(-1).flatten()
+
+
+def calibrate_hourglass(model, family, images) -> float:
+    """Set the focal bias (`b_focal`) so that a tenth of the candidates'
+    best scores reach 0.35 on `images` (bisection): the focal prior leaves
+    NMS nothing on random weights. Returns the bias."""
+    with torch.no_grad():
+        model.b_focal.bias.zero_()
+        out = model(torch.from_numpy(images).to(DEV))
+        # random weights give the stacked model's class logits in the
+        # hundreds: a wide bracket
+        lo, hi = -1e4, 1e4
+        for _ in range(60):
+            mid = 0.5 * (lo + hi)
+            share = float((hourglass_scores(family, out, mid) >= 0.35)
+                          .float().mean())
+            lo, hi = (lo, mid) if share >= 0.1 else (mid, hi)
+        model.b_focal.bias.fill_(hi)
+    return hi
+
+
+def hourglass_predictor(model, family, *, kernels=None, buckets=BUCKETS,
+                        **serving) -> Predictor:
+    decode = hourglass_decode_fn(family, canvas=HG_CANVAS, stride=4)
+    fn = make_serving_fn(model, decode, kernels=kernels, **serving)
+    return Predictor.for_model(fn, model, canvas=HG_CANVAS, buckets=buckets,
+                               device=DEV)
+
+
+def hourglass_serving_path():
+    """Both models at the TPU rows' widths, 20 classes, 320 px, fp32,
+    through `Predictor` with buckets (1, 8) and the request mix, with the
+    default NMS (the dense kernel) and with combined-NMS candidates (top-k
+    + the sweep kernel): the counted run, one launch a chunk each; then the
+    same requests on the plain versions."""
+    from detectax_torch.infer.predict import detections_from_dense
+
+    rng = np.random.default_rng(SEED + 60)
+    requests = [rng.uniform(-1, 1, size=(n, HG_CANVAS, HG_CANVAS, 3))
+                .astype(np.float32) for n in REQUESTS]
+    counts = {"dense_nms": 0, "nms_sweep": 0}
+    out = {}
+    for family, (_, cells) in HG_MODELS.items():
+        model = build_hourglass(family).to(DEV).eval()
+        bias = calibrate_hourglass(model, family, requests[2])
+        decode = hourglass_decode_fn(family, canvas=HG_CANVAS, stride=4)
+        with torch.no_grad():
+            _, probs = decode(model(torch.from_numpy(requests[0]).to(DEV)))
+        passing = int((probs.amax(-1) >= 0.05).sum())
+        log(f"{family} serving: M={probs.shape[1]} candidates an image, "
+            f"focal bias {bias:.4f}, {passing} of the first image pass "
+            f"0.05")
+        check(probs.shape[1] == cells,
+              f"{family}: expected {cells} candidates, got {probs.shape[1]}")
+        check(passing >= 300, f"{family}: too few candidates pass 0.05")
+        preds = {name: hourglass_predictor(model, family, **kw)
+                 for name, kw in HG_PATHS.items()}
+        for p in preds.values():
+            p.warmup()
+
+        # ---- the counted run: counts set to 0 just before, read just after
+        kcommon.reset_launch_counts()
+        results, timings = {}, {}
+        for name, p in preds.items():
+            results[name], timings[name] = serve(p, requests)
+        got_counts = kcommon.launch_counts()
+        # ----
+        chunks = sum(len(preds["dense_nms"]._plan(n)) for n in REQUESTS)
+        check(got_counts == {"dense_nms": chunks, "nms_sweep": chunks},
+              f"{family} serving launched {got_counts}, expected each NMS "
+              f"kernel once a chunk = {chunks}")
+        for name, kw in HG_PATHS.items():
+            for n, dets in zip(REQUESTS, results[name]):
+                check_detections(f"{family} {name}, request of {n}", dets, n)
+            plain_out, _ = serve(
+                hourglass_predictor(model, family, kernels="plain", **kw),
+                requests)
+            for n, got, want in zip(REQUESTS, results[name], plain_out):
+                same_detections(f"{family} {name}, request of {n}", got,
+                                want)
+        check(kcommon.launch_counts() == got_counts,
+              f"the {family} plain paths launched a kernel")
+        for k in counts:
+            counts[k] += got_counts.get(k, 0)
+        with torch.no_grad():
+            x = torch.from_numpy(requests[2]).to(DEV)
+            o = model(x)
+            boxes, probs = decode(o)
+            t = lambda fn: time_ms(fn, warmup=2, reps=10)
+            stages = {
+                "forward": t(lambda: model(x)),
+                "decode": t(lambda: decode(o)),
+                "nms_stage_dense": t(
+                    lambda: detections_from_dense(boxes, probs)),
+                "nms_stage_sweep": t(lambda: detections_from_dense(
+                    boxes, probs, class_aware_candidates=True)),
+            }
+        out[family] = {
+            "focal_bias": bias, "candidates": cells,
+            "passing_first_image": passing,
+            "paths": {name: {
+                "images_per_s": sum(REQUESTS) / sum(timings[name]),
+                "request_ms": {str(n): sec * 1e3 for n, sec in
+                               zip(REQUESTS, timings[name])}}
+                for name in HG_PATHS},
+            "stage_ms_batch_8": stages,
+        }
+        del model, preds
+        torch.cuda.empty_cache()
+    return counts, out
+
+
+def hourglass_assign_fn(family):
+    img = (HG_CANVAS, HG_CANVAS)
+    if family == "hourglass":
+        scales = tuple(HG_CANVAS / 2.0 ** x for x in reversed(range(4)))
+        return lambda b, l, v: hourglass_assign(
+            b, l, v, img_dim=img, num_classes=NUM_CLASSES,
+            box_scales=scales)[0]
+    return lambda b, l, v: stacked_hourglass_assign(
+        b, l, v, img_dim=img, num_classes=NUM_CLASSES, stride=4)[0]
+
+
+def make_hourglass_trainer(family, *, kernels=None, dtype=torch.float32):
+    """As `cli.train_hourglass_voc` composes it (without microbatches):
+    Adam on the epoch schedule, clip 1.0; `HourglassNet` with the focal
+    class loss, so that its focal shape runs."""
+    model = build_hourglass(family, dtype).to(DEV)
+    opt = make_optimizer("adam", epoch_decay(1e-3, 0.9, 500), grad_clip=1.0)
+    if family == "hourglass":
+        loss = functools.partial(hourglass_loss, loss_type="focal",
+                                 kernels=kernels)
+    else:
+        loss = functools.partial(stacked_hourglass_loss, kernels=kernels)
+    step = make_train_step(model, hourglass_assign_fn(family), loss, opt)
+    return model, create_train_state(model, None, opt), step
+
+
+def hourglass_train_path():
+    """Each model at its TPU row's batch: 3 fp32 steps on the kernel path
+    (the counted run) and 3 on the plain path from the same state, step 1
+    to PATHS_RTOL, the BatchNorm statistics moved; then 2 bf16 steps on
+    the kernel path, each step's ms beside the fp32 step's."""
+    counts = {"focal_fwd": 0, "focal_bwd": 0}
+    bf16_counts = {"focal_fwd": 0, "focal_bwd": 0}
+    out = {}
+    for i, (family, (batch, _)) in enumerate(HG_MODELS.items()):
+        batches = [{k: cuda(v) for k, v in train_batch(
+            SEED + 70 + 10 * i + j, canvas=HG_CANVAS, batch=batch).items()}
+            for j in range(HG_STEPS)]
+        made = []
+
+        def make(kernels=None, family=family):
+            model, state, step = make_hourglass_trainer(family,
+                                                        kernels=kernels)
+            made.append(model)
+            return model, state, step
+
+        got, row = kernel_and_plain_steps(
+            f"{family} training", make, hourglass_assign_fn(family),
+            batches, warmup=True)
+        counted = made[1]   # after the warm-up's model
+        moved = sum(int((m.running_mean != 0).any())
+                    for m in counted.modules() if isinstance(m, BatchNorm))
+        check(moved > 0, f"{family}: BatchNorm statistics did not move")
+        del made, counted
+        torch.cuda.empty_cache()
+        _, state, step = make_hourglass_trainer(family, dtype=torch.bfloat16)
+        run_steps(state, step, batches[:1])   # warm-up: cuDNN picks plans
+        kcommon.reset_launch_counts()
+        metrics, ms = run_steps(state, step, batches[:HG_BF16_STEPS])
+        got16 = kcommon.launch_counts()
+        check(got16 == {"focal_fwd": HG_BF16_STEPS,
+                        "focal_bwd": HG_BF16_STEPS},
+              f"{family} bf16 training launched {got16}")
+        check(all(np.isfinite(v) for m in metrics for v in m.values()),
+              f"{family} bf16 training: non-finite metrics {metrics}")
+        del state, step
+        torch.cuda.empty_cache()
+        for k in counts:
+            counts[k] += got.get(k, 0)
+            bf16_counts[k] += got16.get(k, 0)
+        steady = row["step_ms"][1:]
+        out[family] = {
+            **row, "batch_norm_layers_moved": moved,
+            "step_ms_mean_after_first": sum(steady) / len(steady),
+            "bf16_step_ms": ms, "bf16_metrics_last": metrics[-1]}
+    return counts, bf16_counts, out
+
+
+def hourglass_cli_path():
+    """`cli.train_hourglass_voc --variant stacked --multi_scale 256 320`
+    (batch 16 in the trainer's microbatches of 2) and the sigmoid
+    `HourglassNet` (batch 32), 2 steps each on the synthetic dataset; one
+    8-image request from the stacked checkpoint on the kernels and on the
+    plain versions."""
+    from detectax_torch.cli import train_hourglass_voc
+
+    stacked = ["--variant", "stacked", "--n_filters",
+               str(HG_WIDTHS["stacked_hourglass"]), "--n_stacks",
+               str(HG_STACKS)]
+    runs = {
+        "stacked_multi_scale": [*stacked, "--batch_size", "16",
+                                "--multi_scale", *map(str, HG_BUCKETS)],
+        "hourglass_sigmoid": ["--n_filters", str(HG_WIDTHS["hourglass"]),
+                              "--batch_size", "32"],
+    }
+    out, counts = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, extra in runs.items():
+            ckpt_dir = os.path.join(tmp, name)
+            kcommon.reset_launch_counts()
+            summary = train_hourglass_voc.main([
+                "--canvas", str(HG_CANVAS), "--max_steps", str(HG_CLI_STEPS),
+                "--display_step", "1", "--step_save", str(HG_CLI_STEPS),
+                "--synthetic_n", "64", "--ckpt_dir", ckpt_dir,
+                "--out_dir", os.path.join(tmp, name + "_out"), *extra])
+            counts[name] = kcommon.launch_counts()
+            check(summary["final_step"] == HG_CLI_STEPS
+                  and np.isfinite(summary["total"]),
+                  f"hourglass CLI {name} trained {summary}")
+            out[name] = {k: summary[k] for k in (
+                "final_step", "images_per_sec", "total", "num_pos",
+                "grad_norm")}
+        chunks = 16 // HG_MICROBATCH
+        want = HG_CLI_STEPS * chunks
+        check(counts["stacked_multi_scale"] == {"focal_fwd": want,
+                                                "focal_bwd": want},
+              f"stacked CLI launched {counts['stacked_multi_scale']}, "
+              f"expected one focal launch each way a microbatch = {want}")
+        check(counts["hourglass_sigmoid"] == {},
+              f"the sigmoid hourglass CLI launched "
+              f"{counts['hourglass_sigmoid']}")
+        nc = 3  # the synthetic dataset's classes
+        model = StackedHourglass(num_classes=nc,
+                                 n_filters=HG_WIDTHS["stacked_hourglass"],
+                                 n_stacks=HG_STACKS).to(DEV)
+        fresh = model.cnn_out.weight.clone()
+        restore_for_inference(os.path.join(tmp, "stacked_multi_scale"),
+                              model)
+        check(not torch.equal(fresh, model.cnn_out.weight),
+              "restore left the model's weights as they were")
+    decode = hourglass_decode_fn("stacked_hourglass", stride=4)
+    preds = [Predictor.for_model(
+        make_serving_fn(model, decode, score_thresh=0.0, kernels=k), model,
+        canvas=HG_CANVAS, buckets=(8,), device=DEV) for k in (None, "plain")]
+    images = np.random.default_rng(SEED + 61).uniform(
+        -1, 1, size=(8, HG_CANVAS, HG_CANVAS, 3)).astype(np.float32)
+    kcommon.reset_launch_counts()
+    dets = preds[0].predict(images)
+    counts["request"] = kcommon.launch_counts()
+    check(counts["request"] == {"dense_nms": 1},
+          f"stacked request launched {counts['request']}")
+    name = "stacked hourglass request from the checkpoint"
+    check(dets["boxes"].shape == (8, 100, 4)
+          and (dets["num_valid"] > 0).all()
+          and (dets["classes"][dets["valid"]] < nc).all(),
+          f"{name}: wrong shapes, no or impossible detections")
+    same_detections(name, dets, preds[1].predict(images))
+    return counts, out
+
+
+def hourglass_detbench_path():
+    """The TPU DetBench v2 row's command line (`StackedHourglass`,
+    ``n_filters`` 64, two stacks, bf16, losses over the positives, warmup
+    300, clip 16, Adam 1e-3, batch 16 in microbatches of 2) for 2 steps,
+    then `cli.evaluate --family stacked_hourglass` over the 256 eval images
+    on the kernels (the counted run: the dense kernel once a batch of 8,
+    6,400 candidates an image) and on the plain versions; the summaries
+    must be equal."""
+    import contextlib
+    import io
+
+    from detectax_torch.cli import evaluate, train_hourglass_voc
+    from detectax_torch.data.detbench import DetBenchDataset, load_spec
+    from detectax_torch.eval.detection_metrics import (
+        MeanAPEvaluator as evaluator_cls,
+    )
+
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["DETECTAX_DETBENCH_CACHE"] = os.path.join(tmp, "cache")
+        ckpt_dir = os.path.join(tmp, "ckpt")
+        t0 = time.perf_counter()
+        spec = load_spec(name="detbench_v2")
+        DetBenchDataset("train", spec=spec)
+        DetBenchDataset("eval", spec=spec)
+        cache_s = time.perf_counter() - t0
+        kcommon.reset_launch_counts()
+        t1 = time.perf_counter()
+        summary = train_hourglass_voc.main([
+            "--dataset", "detbench_v2", "--max_steps", str(HG_CLI_STEPS),
+            "--backbone", "mobilenetv2", "--display_step", "1",
+            "--step_save", str(HG_CLI_STEPS), "--loss_norm", "pos",
+            "--warmup_steps", "300", "--grad_clip", "16", "--canvas",
+            str(HG_CANVAS), "--batch_size", "16", "--variant", "stacked",
+            "--n_filters", str(HG_WIDTHS["stacked_hourglass"]),
+            "--n_stacks", str(HG_STACKS), "--steps_per_epoch", "1000",
+            "--init_lr", "1e-3", "--bf16", "--ckpt_dir", ckpt_dir,
+            "--out_dir", os.path.join(tmp, "out")])
+        train_s = time.perf_counter() - t1
+        train_counts = kcommon.launch_counts()
+        want = HG_CLI_STEPS * 16 // HG_MICROBATCH
+        check(summary["final_step"] == HG_CLI_STEPS
+              and np.isfinite(summary["total"]),
+              f"DetBench v2 stacked hourglass training: {summary}")
+        check(train_counts == {"focal_fwd": want, "focal_bwd": want},
+              f"DetBench v2 stacked hourglass training launched "
+              f"{train_counts}, expected {want} each way")
+        argv = ["--family", "stacked_hourglass", "--dataset", "detbench_v2",
+                "--n_filters", str(HG_WIDTHS["stacked_hourglass"]),
+                "--n_stacks", str(HG_STACKS), "--canvas", str(HG_CANVAS),
+                "--ckpt_dir", ckpt_dir, "--coco_metrics", "--cls_thresh",
+                "0.0"]
+        quiet = io.StringIO()
+        # two steps from random weights may match no box at all: beside the
+        # summaries, every image's detections are compared
+        seen = []
+        add_image = evaluator_cls.add_image
+
+        def recording(self, *a):
+            seen[-1].append([np.asarray(v) for v in a[:3]])
+            return add_image(self, *a)
+
+        evaluator_cls.add_image = recording
+        try:
+            # ---- the counted run: counts set to 0 just before, read just
+            # after
+            seen.append([])
+            kcommon.reset_launch_counts()
+            t2 = time.perf_counter()
+            with contextlib.redirect_stdout(quiet):
+                got = evaluate.main(argv)
+            eval_s = time.perf_counter() - t2
+            counts = kcommon.launch_counts()
+            # ----
+            seen.append([])
+            with contextlib.redirect_stdout(quiet):
+                plain = evaluate.main(argv + ["--plain_kernels"])
+        finally:
+            evaluator_cls.add_image = add_image
+        check(kcommon.launch_counts() == counts,
+              "the plain-kernel evaluation launched a kernel")
+        del os.environ["DETECTAX_DETBENCH_CACHE"]
+    check(len(seen[0]) == len(seen[1])
+          and all(len(a[0]) > 0 and all(np.array_equal(x, y)
+                                        for x, y in zip(a, b))
+                  for a, b in zip(*seen)),
+          "DetBench v2 evaluation: the detections of the kernels and of "
+          "the plain versions differ")
+    batches = -(-256 // 8)
+    check(counts == {"dense_nms": batches},
+          f"DetBench v2 evaluation launched {counts}, expected {batches}")
+    check(got["num_images"] == 256, f"evaluated {got['num_images']} images")
+    check(got == plain, f"DetBench v2 summaries differ: kernels {got}, "
+                        f"plain versions {plain}")
+    return train_counts, counts, {
+        "cache_s": cache_s, "train_s": train_s,
+        "train": {k: summary[k] for k in ("final_step", "images_per_sec",
+                                          "total", "cls", "num_pos",
+                                          "grad_norm")},
+        "eval_s": eval_s, "eval_images_per_s": 256 / eval_s,
+        "summary": got, "summaries_equal": True,
+        "detections_equal_image_by_image": True,
+    }
+
+
+# --------------------------------------------------------------------------
 
 def main() -> None:
     if not torch.cuda.is_available():
@@ -2536,6 +3007,11 @@ def main() -> None:
                           plain_reps=1, nc=RN_CLASSES),
               check_dense(rn, 1, RN_HIGH_RES_CANDIDATES, 200,
                           class_aware=False, plain_reps=1, nc=RN_CLASSES)]
+    # both hourglass models at 320 px (6,400 candidates an image) and at
+    # the 448 bucket (12,544)
+    hg = np.random.default_rng(SEED + 14)
+    dense += [check_dense(hg, 8, m, 100, plain_reps=1)
+              for m in (HG_MODELS["hourglass"][1], HG_BIG_CANDIDATES)]
     for r in sweep:
         if "ms" in r:
             r["chain_ms"] = r["shape"]["K"] * step_ns * 1e-6
@@ -2551,6 +3027,7 @@ def main() -> None:
     focal[0]["alignment"] = check_focal_alignment(
         np.random.default_rng(SEED + 9))
     focal.append(check_focal_retinanet())
+    focal += check_focal_hourglass()
     torch.cuda.empty_cache()
     for r in focal:
         log(f"kernel focal {json.dumps(r)}")
@@ -2627,15 +3104,43 @@ def main() -> None:
         "card": card, "fcos": f"FCOS {BACKBONE} FPN, {CANVAS} px",
         "retinanet": f"RetinaNet {RN_BACKBONE}, {RN_CANVAS} px",
         "dtype": "bfloat16", "batch": TRAIN_BATCH, **bf16}))
+    torch.cuda.empty_cache()
+
+    t_hg = time.perf_counter()
+    hg_counts, hg_serving = hourglass_serving_path()
+    log("hourglass_serving " + json.dumps({
+        "card": card, "models": {"hourglass": "HourglassNet n_filters 12",
+                                 "stacked_hourglass": "StackedHourglass "
+                                 "n_filters 64, 2 stacks"},
+        "canvas": HG_CANVAS, "dtype": "float32", "classes": NUM_CLASSES,
+        "buckets": BUCKETS, "requests": REQUESTS, **hg_serving}))
+    hg_train_counts, hg_bf16_counts, hg_training = hourglass_train_path()
+    log("hourglass_training " + json.dumps({
+        "card": card, "canvas": HG_CANVAS, "classes": NUM_CLASSES,
+        "dtype": "float32, then bfloat16", **hg_training}))
+    hg_cli_counts, hg_cli = hourglass_cli_path()
+    log("hourglass_cli " + json.dumps(hg_cli))
+    torch.cuda.empty_cache()
+    hg_db_train_counts, hg_db_counts, hg_detbench = hourglass_detbench_path()
+    log("hourglass_detbench_v2 " + json.dumps({
+        "card": card, "model": "StackedHourglass n_filters 64, 2 stacks",
+        "canvas": HG_CANVAS, "dtype": "bfloat16", **hg_detbench}))
+    log(f"hourglass phase took {time.perf_counter() - t_hg:.1f} s")
 
     by_path = {
-        "nms_sweep": {"fcos_serving": counts["nms_sweep"]},
+        "nms_sweep": {"fcos_serving": counts["nms_sweep"],
+                      "hourglass_serving": hg_counts["nms_sweep"]},
         "dense_nms": {"fcos_serving": counts["dense_nms"],
                       "centernet_serving": cn_counts["dense_nms"],
                       "detbench_evaluation": db_counts["dense_nms"],
                       "retinanet_serving": rn_counts["dense_nms"],
                       "retinanet_detbench_v2_evaluation":
-                          rn_db_counts["dense_nms"]},
+                          rn_db_counts["dense_nms"],
+                      "hourglass_serving": hg_counts["dense_nms"],
+                      "stacked_hourglass_cli_request":
+                          hg_cli_counts["request"]["dense_nms"],
+                      "stacked_hourglass_detbench_v2_evaluation":
+                          hg_db_counts["dense_nms"]},
         "focal": {"fcos_training": train_counts["focal_fwd"],
                   "centernet_training": cn_train_counts["focal_fwd"],
                   "centernet_s8_training": s8_train_counts["focal_fwd"],
@@ -2647,7 +3152,13 @@ def main() -> None:
                   "retinanet_detbench_v2_bf16_training":
                       rn_db_train_counts["focal_fwd"],
                   "fcos_bf16_training": bf16_counts["focal_fwd"],
-                  "retinanet_bf16_training": rn_bf16_counts["focal_fwd"]},
+                  "retinanet_bf16_training": rn_bf16_counts["focal_fwd"],
+                  "hourglass_training": hg_train_counts["focal_fwd"],
+                  "hourglass_bf16_training": hg_bf16_counts["focal_fwd"],
+                  "stacked_hourglass_cli_training":
+                      hg_cli_counts["stacked_multi_scale"]["focal_fwd"],
+                  "stacked_hourglass_detbench_v2_bf16_training":
+                      hg_db_train_counts["focal_fwd"]},
         "peak": {"centernet_serving": cn_counts["peak"]},
     }
     for name, paths in by_path.items():
@@ -2662,7 +3173,12 @@ def main() -> None:
                                 + rn_train_counts["focal_bwd"]
                                 + rn_db_train_counts["focal_bwd"]
                                 + bf16_counts["focal_bwd"]
-                                + rn_bf16_counts["focal_bwd"])
+                                + rn_bf16_counts["focal_bwd"]
+                                + hg_train_counts["focal_bwd"]
+                                + hg_bf16_counts["focal_bwd"]
+                                + hg_cli_counts["stacked_multi_scale"][
+                                    "focal_bwd"]
+                                + hg_db_train_counts["focal_bwd"])
     # the five levels: one grouped call (what training runs), and beside it
     # the five single calls of the per-level rows
     levels, grouped = focal[:len(FOCAL_LEVELS)], groups[0]

@@ -30,11 +30,12 @@ from detbench_fcos_r50 import ROOT, run
 TPU_RUN = os.path.join(ROOT, "benchmarks", "runs_v2", "retinanet")
 
 
-def tpu_yardsticks() -> dict:
+def tpu_yardsticks(tpu_run: str = TPU_RUN) -> dict:
     """The TPU row's eval summary and, by step, the losses and `num_pos`
-    of its log's first run (the log holds the same run twice)."""
+    of its log's first run (a log may hold the same run twice); the row
+    is the directory ``tpu_run`` (`log.txt`, `eval.json`)."""
     steps = {}
-    with open(os.path.join(TPU_RUN, "log.txt")) as f:
+    with open(os.path.join(tpu_run, "log.txt")) as f:
         runs = 0
         for line in f:
             if line.startswith("$ "):
@@ -48,7 +49,7 @@ def tpu_yardsticks() -> dict:
                 steps[int(m.group(1))] = {
                     k: float(fields[k]) for k in ("cls", "reg", "total",
                                                   "num_pos", "grad_norm")}
-    with open(os.path.join(TPU_RUN, "eval.json")) as f:
+    with open(os.path.join(tpu_run, "eval.json")) as f:
         summary = json.load(f)
     return {"eval": {k: summary[k] for k in ("mAP@0.5", "mAP@[.5:.95]")},
             "steps": steps}

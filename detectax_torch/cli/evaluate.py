@@ -32,11 +32,14 @@ from detectax_torch.eval.detection_metrics import (
     coco_evaluator,
 )
 from detectax_torch.infer import predict as P
+from detectax_torch.infer.export import hourglass_decode_fn
 from detectax_torch.models import (
     FCOS,
     CenterNetFPNSingle,
     CenterNetS8,
+    HourglassNet,
     RetinaNet,
+    StackedHourglass,
 )
 from detectax_torch.ops import anchors as anchor_lib
 from detectax_torch.runtime import resolve_device, set_tf32
@@ -47,14 +50,6 @@ FAMILIES = (
     "fcos", "fcos_center", "fcos_center_v1", "centernet_s8",
     "centernet_heatmap", "hourglass", "stacked_hourglass", "retinanet",
 )
-
-# the families whose models wait for a later slice, and where
-_WAITING = {
-    "hourglass": "ROADMAP.md queue 1, the hourglass half of the CenterNet "
-                 "family",
-    "stacked_hourglass": "ROADMAP.md queue 1, the hourglass half of the "
-                         "CenterNet family",
-}
 
 # Training-time preprocessing per family (mirrors the trainer CLIs: eval
 # must match training geometry or mAP is misreported).
@@ -71,16 +66,9 @@ TRAIN_GEOMETRY = {
 }
 
 
-def _check_ported(family):
-    if family in _WAITING:
-        raise NotImplementedError(
-            f"--family {family} is not ported yet ({_WAITING[family]})")
-
-
 def build_family(family, nc, backbone, canvas, args, kernels=None):
     """(model, decode) of ``family``; ``kernels="plain"`` makes the decode
     run the peak kernel's plain version."""
-    _check_ported(family)
     if family in ("fcos", "fcos_center", "fcos_center_v1"):
         variant = {"fcos": "fcos", "fcos_center": "center",
                    "fcos_center_v1": "center_v1"}[family]
@@ -105,6 +93,14 @@ def build_family(family, nc, backbone, canvas, args, kernels=None):
         return model, lambda out: P.centernet_heatmap_decode(
             out, kernels=kernels
         )
+    if family == "hourglass":
+        model = HourglassNet(num_classes=nc, n_filters=args.n_filters)
+        return model, hourglass_decode_fn(family, canvas=canvas)
+    if family == "stacked_hourglass":
+        model = StackedHourglass(num_classes=nc, n_filters=args.n_filters,
+                                 n_stacks=args.n_stacks)
+        return model, hourglass_decode_fn(family,
+                                          stride=model.output_stride)
     if family == "retinanet":
         anchors = anchor_lib.anchor_shapes_per_level(
             anchor_sizes=args.anchor_sizes)
@@ -194,7 +190,6 @@ def main(argv=None):
         raise NotImplementedError(
             "--data_parallel is not ported yet (ROADMAP.md queue 1, "
             "Parallelism)")
-    _check_ported(args.family)  # before any data is generated
     device = resolve_device(args.device)
     set_tf32(False)
     kernels = "plain" if args.plain_kernels else None

@@ -99,6 +99,22 @@ def centernet_decode_fn(family: str, *, box_scales=None, kernels=None):
     raise ValueError(f"unknown CenterNet family {family!r}")
 
 
+def hourglass_decode_fn(family: str, *, canvas: int | None = None,
+                        stride: int = 4):
+    """The decode of an hourglass family as the evaluation CLI pairs
+    them: ``"hourglass"`` (`HourglassNet`: four slots of scales ``canvas /
+    2^x``, x = 3..0) or ``"stacked_hourglass"`` (`StackedHourglass`: one
+    map of output stride ``stride``)."""
+    if family == "hourglass":
+        if canvas is None:
+            raise ValueError("hourglass decodes with the canvas's scales")
+        scales = [canvas / (2.0 ** x) for x in reversed(range(4))]
+        return lambda out: P.hourglass_decode(out, box_scales=scales)
+    if family == "stacked_hourglass":
+        return lambda out: P.stacked_hourglass_decode(out, stride=stride)
+    raise ValueError(f"unknown hourglass family {family!r}")
+
+
 def retinanet_decode_fn(anchor_sizes: Sequence[float]):
     """The decode of a `RetinaNet` trained with ``anchor_sizes`` (one a
     level; the default aspect ratios and scales give nine anchors a

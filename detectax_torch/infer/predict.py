@@ -1,11 +1,9 @@
 """Inference: forward → decode → fixed-shape NMS.
 
-Port of the FCOS, ResNet-backbone CenterNet and RetinaNet parts of
-`detectax/infer/predict.py`: per-level decode (`ops.boxes`,
+Port of `detectax/infer/predict.py`: per-level decode (`ops.boxes`,
 `ops.anchors`), the heatmap peak mask (`kernels.peak`), candidate
 selection and the shared deterministic NMS (`ops.nms`). Everything
-static-shape; batch-first. The hourglass decoders wait for their model
-family.
+static-shape; batch-first.
 """
 from __future__ import annotations
 
@@ -86,6 +84,42 @@ def centernet_s8_decode(
         all_boxes.append(boxes.reshape(b, -1, 4))
         all_probs.append(torch.sigmoid(cls).reshape(b, -1, cls.shape[-1]))
     return torch.cat(all_boxes, dim=1), torch.cat(all_probs, dim=1)
+
+
+def hourglass_decode(
+    output: torch.Tensor,
+    *,
+    box_scales: Sequence[float],
+    stride: int = 8,
+):
+    """Hourglass decode: output ``[B,h,w,4,5+nc]`` with sigmoid reg and the
+    objectness logit in channel 4; score = σ(obj)·σ(cls). Returns (boxes
+    ``[B,4*h*w,4]``, probs ``[B,4*h*w,nc]``), slot-major."""
+    b, _, _, s, _ = output.shape
+    if len(box_scales) != s:
+        raise ValueError(f"{len(box_scales)} box scales for {s} slots")
+    all_boxes, all_probs = [], []
+    for slot in range(s):
+        reg = output[:, :, :, slot, :4]
+        obj = output[:, :, :, slot, 4]
+        cls = output[:, :, :, slot, 5:]
+        boxes = offset_scale_to_corners(
+            reg, float(box_scales[slot]), float(stride))
+        probs = torch.sigmoid(cls) * torch.sigmoid(obj)[..., None]
+        all_boxes.append(boxes.reshape(b, -1, 4))
+        all_probs.append(probs.reshape(b, -1, probs.shape[-1]))
+    return torch.cat(all_boxes, dim=1), torch.cat(all_probs, dim=1)
+
+
+def stacked_hourglass_decode(output: torch.Tensor, *, stride: int = 4):
+    """Stacked-hourglass decode: output ``[B,h,w,4+nc]`` with raw (t,b,l,r)
+    reg in stride units from the cell centre; corners = ``stride * (grid
+    ∓ reg)``, scores = σ(cls). Default stride 4, the model's output
+    stride."""
+    b, h, w, _ = output.shape
+    boxes = ltrb_to_corners(output[..., :4], float(stride))
+    probs = torch.sigmoid(output[..., 4:].to(torch.float32))
+    return boxes.reshape(b, -1, 4), probs.reshape(b, h * w, probs.shape[-1])
 
 
 def centernet_heatmap_decode(

@@ -7,7 +7,9 @@ Flax parameter tree ("Conv_0", "BatchNorm_0", ...), so
 `detectax_torch.tools.from_flax` maps a Flax tree onto a ``state_dict``
 name for name.
 
-The hourglass blocks of the JAX file are not ported yet.
+The hourglass blocks of the JAX file (`SeparableConv`,
+`HourglassConvBlock`, `HourglassDownsample`, `FocalBias`) take their input
+channel count as a first argument, where Flax reads it off the input.
 """
 from __future__ import annotations
 
@@ -185,22 +187,30 @@ def upsample_to(x: torch.Tensor, hw: tuple,
     ).permute(0, 2, 3, 1)
 
 
-def space_to_depth(x: torch.Tensor, block: int) -> torch.Tensor:
-    """[B, H, W, C] -> [B, H/b, W/b, C*b*b] (pixel-unshuffle, channels
-    packed as (dy, dx, c))."""
-    b, h, w, c = x.shape
-    x = x.reshape(b, h // block, block, w // block, block, c)
-    x = x.permute(0, 1, 3, 2, 4, 5)
-    return x.reshape(b, h // block, w // block, c * block * block)
+def upsample2x_nchw(x: torch.Tensor, method: str = "nearest") -> torch.Tensor:
+    """`upsample2x` of an NCHW tensor."""
+    h, w = x.shape[2:]
+    return _upsample_to_nchw(x, (2 * h, 2 * w), method)
 
 
-def depth_to_space(x: torch.Tensor, block: int) -> torch.Tensor:
-    """[B, H, W, C] -> [B, H*b, W*b, C/(b*b)] (inverse of space_to_depth)."""
-    b, h, w, c = x.shape
+def space_to_depth_nchw(x: torch.Tensor, block: int) -> torch.Tensor:
+    """[B, C, H, W] -> [B, C*b*b, H/b, W/b], the JAX package's
+    `space_to_depth` on NCHW: the output channels are packed as (dy, dx,
+    c) (torch's ``pixel_unshuffle`` packs (c, dy, dx))."""
+    b, c, h, w = x.shape
+    x = x.reshape(b, c, h // block, block, w // block, block)
+    x = x.permute(0, 3, 5, 1, 2, 4)
+    return x.reshape(b, block * block * c, h // block, w // block)
+
+
+def depth_to_space_nchw(x: torch.Tensor, block: int) -> torch.Tensor:
+    """[B, C, H, W] -> [B, C/(b*b), H*b, W*b] (inverse of
+    `space_to_depth_nchw`)."""
+    b, c, h, w = x.shape
     cs = c // (block * block)
-    x = x.reshape(b, h, w, block, block, cs)
-    x = x.permute(0, 1, 3, 2, 4, 5)
-    return x.reshape(b, h * block, w * block, cs)
+    x = x.reshape(b, block, block, cs, h, w)
+    x = x.permute(0, 3, 4, 1, 5, 2)
+    return x.reshape(b, cs, h * block, w * block)
 
 
 class ConvBN(nn.Module):
@@ -241,11 +251,137 @@ class ConvBN(nn.Module):
         return x
 
 
+class SeparableConv(nn.Module):
+    """Depthwise-separable conv (Keras SeparableConv2D): a ``kernel`` x
+    ``kernel`` depthwise conv (``groups=in_features``, no bias, "SAME"
+    padding, ``stride``) named ``depthwise``, then a 1x1 conv to
+    ``features`` named ``pointwise`` (with a bias unless ``use_bias`` is
+    off)."""
+
+    def __init__(self, in_features: int, features: int, kernel: int = 3,
+                 stride: int = 1, use_bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.depthwise = Conv(in_features, in_features, kernel,
+                              stride=stride, use_bias=False,
+                              groups=in_features, dtype=dtype)
+        self.pointwise = Conv(in_features, features, 1, use_bias=use_bias,
+                              dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.pointwise(self.depthwise(x))
+
+
+def hourglass_bn(features: int, dtype: torch.dtype) -> BatchNorm:
+    """The hourglass blocks' BatchNorm: momentum 0.9, epsilon 1e-5, the
+    `bn_f32_stats` mode."""
+    return BatchNorm(features, epsilon=1e-5, momentum=0.9, dtype=dtype,
+                     force_float32_reductions=bn_f32_stats())
+
+
+def hourglass_conv(separable: bool, in_features: int, features: int,
+                   kernel: int, stride: int, dtype: torch.dtype):
+    """A `SeparableConv`, or with ``separable`` off a plain `Conv`
+    ("SAME")."""
+    if separable:
+        return SeparableConv(in_features, features, kernel, stride,
+                             dtype=dtype)
+    return Conv(in_features, features, kernel, stride=stride, dtype=dtype)
+
+
+_NORM_ORDERS = ("norm_first", "norm_last")
+
+
+class HourglassConvBlock(nn.Module):
+    """``n_repeats`` of [BatchNorm (``norm_first``) → (separable) conv →
+    BatchNorm (``norm_last``) → ReLU], each repeat from the second on
+    adding its input. Repeat ``i`` holds ``bn_i`` and ``conv_i``; the first
+    repeat's ``norm_first`` BatchNorm runs over ``in_features``, every
+    other over ``features``."""
+
+    def __init__(self, in_features: int, features: int, kernel: int = 3,
+                 stride: int = 1, n_repeats: int = 1,
+                 separable: bool = True, batch_norm: bool = True,
+                 norm_order: str = "norm_first",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if norm_order not in _NORM_ORDERS:
+            raise ValueError(f"unknown norm_order {norm_order!r}")
+        self.n_repeats = int(n_repeats)
+        self.batch_norm = bool(batch_norm)
+        self.norm_first = norm_order == "norm_first"
+        for i in range(self.n_repeats):
+            cin = in_features if i == 0 else features
+            if self.batch_norm:
+                self.add_module(f"bn_{i}", hourglass_bn(
+                    cin if self.norm_first else features, dtype))
+            self.add_module(f"conv_{i}", hourglass_conv(
+                separable, cin, features, kernel, stride, dtype))
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        inp = x
+        for i in range(self.n_repeats):
+            h = inp
+            if self.batch_norm and self.norm_first:
+                h = getattr(self, f"bn_{i}")(h, train)
+            h = getattr(self, f"conv_{i}")(h)
+            if self.batch_norm and not self.norm_first:
+                h = getattr(self, f"bn_{i}")(h, train)
+            h = F.relu(h)
+            inp = h if i == 0 else h + inp
+        return inp
+
+
+class HourglassDownsample(nn.Module):
+    """BatchNorm (``norm_first``) → stride-2 (separable) conv → BatchNorm
+    (``norm_last``) → ReLU. The sub-modules carry Flax's auto-names:
+    ``BatchNorm_0`` and ``SeparableConv_0`` (or ``Conv_0``)."""
+
+    def __init__(self, in_features: int, features: int, kernel: int = 3,
+                 separable: bool = True, batch_norm: bool = True,
+                 norm_order: str = "norm_first",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if norm_order not in _NORM_ORDERS:
+            raise ValueError(f"unknown norm_order {norm_order!r}")
+        self.batch_norm = bool(batch_norm)
+        self.norm_first = norm_order == "norm_first"
+        if self.batch_norm:
+            self.BatchNorm_0 = hourglass_bn(
+                in_features if self.norm_first else features, dtype)
+        self.conv_name = "SeparableConv_0" if separable else "Conv_0"
+        self.add_module(self.conv_name, hourglass_conv(
+            separable, in_features, features, kernel, 2, dtype))
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        h = x
+        if self.batch_norm and self.norm_first:
+            h = self.BatchNorm_0(h, train)
+        h = getattr(self, self.conv_name)(h)
+        if self.batch_norm and not self.norm_first:
+            h = self.BatchNorm_0(h, train)
+        return F.relu(h)
+
+
+class FocalBias(nn.Module):
+    """A trainable float32 scalar ``bias``, initialized to the focal
+    prior, added to the class logits (cast to their dtype)."""
+
+    def __init__(self, init_value: float = FOCAL_BIAS):
+        super().__init__()
+        self.init_value = float(init_value)
+        self.bias = nn.Parameter(torch.tensor(self.init_value))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x + self.bias.to(x.dtype)
+
+
 def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
     """Seeded initial weights, the Flax modules' scheme: conv kernels
     LeCun-normal (variance 1/fan_in), conv biases zero — or the focal prior
     where the conv is marked ``focal_bias`` — BatchNorm scale one, bias
-    zero, running mean zero, running variance one. The numbers are drawn on
+    zero, running mean zero, running variance one, a `FocalBias` its
+    initial value. The numbers are drawn on
     the generator's device and copied to the module's, so a seed gives the
     same weights wherever the module lies."""
     with torch.no_grad():
@@ -264,3 +400,5 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
                 m.bias.zero_()
                 m.running_mean.zero_()
                 m.running_var.fill_(1.0)
+            elif isinstance(m, FocalBias):
+                m.bias.fill_(m.init_value)

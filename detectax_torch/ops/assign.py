@@ -5,9 +5,9 @@ Port of `detectax/ops/assign.py`'s FCOS assigners — all-in-box
 centroid-only offset+scale variant (`fcos_center_v1_assign`), each with
 its one-level function and the helpers — and of the two assigners of the
 ResNet-backbone CenterNet family (`centernet_scale_slot_assign`,
-`centernet_heatmap_assign`) and RetinaNet's anchor-IoU matching
-(`retinanet_assign`); the hourglass assigners of that file are not ported
-yet. Each is a broadcast-and-reduce
+`centernet_heatmap_assign`), of the two hourglass models
+(`stacked_hourglass_assign`, `hourglass_assign`) and RetinaNet's
+anchor-IoU matching (`retinanet_assign`). Each is a broadcast-and-reduce
 over a padded ground-truth array. The JAX package writes the assignment
 for one image and maps it over the batch; here the batch dimension is
 written out, so every function takes a whole padded batch.
@@ -572,6 +572,136 @@ def centernet_scale_slot_assign(
             .permute(0, 3, 4, 1, 2)                         # [B,hm,wm,S,nc]
         cls = torch.maximum(cls, gauss)  # keep exact 1.0 peaks
     out = torch.cat([reg_o * has_f, cls], dim=-1)
+    return out, valid.sum(dim=-1, dtype=torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Hourglass assignment
+# ---------------------------------------------------------------------------
+
+
+def stacked_hourglass_assign(
+    gt_yxhw: torch.Tensor,
+    gt_labels: torch.Tensor,
+    gt_valid: torch.Tensor,
+    *,
+    img_dim: tuple,
+    img_pad: tuple | None = None,
+    num_classes: int,
+    stride: int = 4,
+):
+    """Single-map centroid assignment of a padded batch for
+    `models.StackedHourglass`: one ``[hm, wm, 4+nc]`` map an image; at each
+    box's centroid cell, ``reg = (t, b, l, r)`` half-extents in stride
+    units measured from the cell centre (``t = y_cell + 0.5 -
+    y_lo/stride``), and a one-hot class. The smallest box owns a contested
+    cell. Returns (``[B, hm, wm, 4+nc]``, n_targets ``[B]``)."""
+    dev = gt_yxhw.device
+    gt_yxhw = gt_yxhw.to(torch.float32)
+    gt_valid = gt_valid.to(torch.bool)
+    img_pad = img_pad or img_dim
+    hm = int(img_pad[0]) // stride
+    wm = int(img_pad[1]) // stride
+    pad_y = int((img_pad[0] - img_dim[0]) / 2.0)
+    pad_x = int((img_pad[1] - img_dim[1]) / 2.0)
+
+    y_c, x_c, bh, bw = _gt_pixels(gt_yxhw, img_dim)        # [B, N] each
+    y_lo = y_c - bh * 0.5
+    y_hi = y_c + bh * 0.5
+    x_lo = x_c - bw * 0.5
+    x_hi = x_c + bw * 0.5
+
+    y_cell = _trunc_int((pad_y + y_c) / stride)
+    x_cell = _trunc_int((pad_x + x_c) / stride)
+    in_map = (y_cell >= 0) & (y_cell < hm) & (x_cell >= 0) & (x_cell < wm)
+    valid = gt_valid & in_map
+
+    yc_f = y_cell.to(torch.float32)
+    xc_f = x_cell.to(torch.float32)
+    reg = torch.stack([
+        yc_f + 0.5 - (pad_y + y_lo) / stride,
+        (pad_y + y_hi) / stride - yc_f - 0.5,
+        xc_f + 0.5 - (pad_x + x_lo) / stride,
+        (pad_x + x_hi) / stride - xc_f - 0.5,
+    ], dim=-1)                                              # [B, N, 4]
+
+    jy = torch.arange(hm, dtype=torch.int32, device=dev)
+    jx = torch.arange(wm, dtype=torch.int32, device=dev)
+    cover = (
+        (jy[None, :, None, None] == y_cell[:, None, None, :])
+        & (jx[None, None, :, None] == x_cell[:, None, None, :])
+        & valid[:, None, None, :]
+    )  # [B, hm, wm, N]
+    owner, has = _smallest_owner(cover, bh * bw)
+    reg_o, cls = _select_rows(owner, reg, _one_hot(gt_labels, num_classes))
+    has_f = has[..., None].to(torch.float32)
+    out = torch.cat([reg_o * has_f, cls * has_f], dim=-1)
+    return out, valid.sum(dim=-1, dtype=torch.int32)
+
+
+def hourglass_assign(
+    gt_yxhw: torch.Tensor,
+    gt_labels: torch.Tensor,
+    gt_valid: torch.Tensor,
+    *,
+    img_dim: tuple,
+    img_pad: tuple | None = None,
+    num_classes: int,
+    box_scales: Sequence[float] | None = None,
+    stride: int = 8,
+):
+    """Four-slot assignment of a padded batch with an explicit objectness
+    channel, for `models.HourglassNet`: slot = the first scale with
+    **both** ``h < scale`` and ``w < scale`` (else the last slot); the
+    image is centre-padded into ``img_pad``; the regression is the
+    stride-normalized fractional centroid offset and the box size over its
+    slot's scale. Default scales ``[d/8, d/4, d/2, d]`` of the padded
+    height ``d``. Returns (``[B, hm, wm, 4, 5+nc]`` with layout ``[y_off,
+    x_off, h_sc, w_sc, objectness, one_hot]``, n_targets ``[B]``)."""
+    dev = gt_yxhw.device
+    gt_yxhw = gt_yxhw.to(torch.float32)
+    gt_valid = gt_valid.to(torch.bool)
+    img_pad = img_pad or img_dim
+    if box_scales is None:
+        d = float(img_pad[0])
+        box_scales = [d / 8.0, d / 4.0, d / 2.0, d]
+    hm = int(img_pad[0]) // stride
+    wm = int(img_pad[1]) // stride
+    pad_y = int((img_pad[0] - img_dim[0]) / 2.0)
+    pad_x = int((img_pad[1] - img_dim[1]) / 2.0)
+    n_slots = len(box_scales)
+
+    y_c, x_c, bh, bw = _gt_pixels(gt_yxhw, img_dim)        # [B, N] each
+    scales = torch.tensor([float(s) for s in box_scales],
+                          dtype=torch.float32, device=dev)
+    fits = (bh[..., None] < scales) & (bw[..., None] < scales)  # [B, N, S]
+    slot = _first_argmax(fits.to(torch.int32))
+    slot = torch.where(fits.any(dim=-1), slot, n_slots - 1)
+
+    y_cell = _trunc_int((pad_y + y_c) / stride)
+    x_cell = _trunc_int((pad_x + x_c) / stride)
+    in_map = (y_cell >= 0) & (y_cell < hm) & (x_cell >= 0) & (x_cell < wm)
+    valid = gt_valid & in_map & (bh >= 0) & (bw >= 0)
+
+    y_off = (pad_y + y_c - y_cell.to(torch.float32) * stride) / stride
+    x_off = (pad_x + x_c - x_cell.to(torch.float32) * stride) / stride
+    slot_scale = scales[slot]
+    reg = torch.stack([y_off, x_off, bh / slot_scale, bw / slot_scale],
+                      dim=-1)                               # [B, N, 4]
+
+    jy = torch.arange(hm, dtype=torch.int32, device=dev)
+    jx = torch.arange(wm, dtype=torch.int32, device=dev)
+    js = torch.arange(n_slots, dtype=torch.int64, device=dev)
+    cover = (
+        (jy[None, :, None, None, None] == y_cell[:, None, None, None, :])
+        & (jx[None, None, :, None, None] == x_cell[:, None, None, None, :])
+        & (js[None, None, None, :, None] == slot[:, None, None, None, :])
+        & valid[:, None, None, None, :]
+    )  # [B, hm, wm, S, N]
+    owner, has = _smallest_owner(cover, bh * bw)
+    reg_o, cls = _select_rows(owner, reg, _one_hot(gt_labels, num_classes))
+    has_f = has[..., None].to(torch.float32)
+    out = torch.cat([reg_o * has_f, has_f, cls * has_f], dim=-1)
     return out, valid.sum(dim=-1, dtype=torch.int32)
 
 

@@ -1,21 +1,20 @@
 """Loss compositions over the shared `ops.losses` library.
 
-Port of `detectax/train/losses.py::fcos_loss` (which also serves the
-single-map heatmap CenterNet, as one level), `centernet_s8_loss` and
-`retinanet_loss`; the hourglass compositions of that file are not ported
-yet. Each
-returns per-example-sum
-scalars; the train step divides by the batch size, or by ``num_pos`` — the
-number of positive cells in the batch, which the dict carries — under
-``loss_norm="pos"``.
+Port of `detectax/train/losses.py`: `fcos_loss` (which also serves the
+single-map heatmap CenterNet, as one level), `centernet_s8_loss`,
+`hourglass_loss`, `stacked_hourglass_loss` and `retinanet_loss`. Each
+returns per-example-sum scalars; the train step divides by the batch
+size, or by ``num_pos`` — the number of positive cells in the batch,
+which the dict carries — under ``loss_norm="pos"``.
 
 The classification term is the focal loss. On a CUDA tensor it is the
 hand-written kernel, with no switch to turn on: `fcos_loss` hands every
 level's class channels (and, under ``cen_type="focal"``, every level's
 centerness) to one call of `detectax_torch.kernels.focal.focal_loss_group`
 — one forward and one backward launch a step — as `retinanet_loss` does
-with its five levels' class channels, and `centernet_s8_loss` calls
-`focal_loss`. On a CPU tensor, or with ``kernels="plain"``, they run
+with its five levels' class channels, and `centernet_s8_loss`,
+`stacked_hourglass_loss` and `hourglass_loss` (under ``loss_type="focal"``)
+call `focal_loss`. On a CPU tensor, or with ``kernels="plain"``, they run
 the plain versions (`focal_loss_group_plain`, which is
 `detectax_torch.ops.losses.focal_loss` once a segment). The class channels
 ``y[..., 5:]`` (RetinaNet: ``y[..., 4:]``) are strided views of the level
@@ -29,7 +28,11 @@ import torch
 
 from detectax_torch.kernels import focal as focal_kernels
 from detectax_torch.ops.losses import focal_loss as focal_loss_plain
-from detectax_torch.ops.losses import iou_loss, smooth_l1_loss
+from detectax_torch.ops.losses import (
+    iou_loss,
+    sigmoid_bce_loss,
+    smooth_l1_loss,
+)
 
 
 def _focal_fns(kernels):
@@ -112,6 +115,57 @@ def centernet_s8_loss(
     focal_loss, _ = _focal_fns(kernels)
     obj = y_true[..., 4:].amax(dim=-1)
     mask = (obj >= 1.0 - 1e-6).to(torch.float32)
+    cls_loss = focal_loss(y_true[..., 4:], y_pred[..., 4:])
+    reg_loss = smooth_l1_loss(y_true[..., :4], y_pred[..., :4], mask=mask)
+    total = cls_lambda * cls_loss + reg_lambda * reg_loss
+    return {"cls": cls_loss, "reg": reg_loss, "total": total,
+            "num_pos": mask.sum()}
+
+
+def hourglass_loss(
+    y_true: torch.Tensor,
+    y_pred: torch.Tensor,
+    *,
+    loss_type: str = "sigmoid",
+    reg_lambda: float = 0.10,
+    kernels=None,
+) -> dict:
+    """Hourglass loss over ``[B, h, w, 4, 5+nc]`` maps, channel 4 the
+    objectness: sigmoid cross-entropy (``loss_type="sigmoid"``, no kernel)
+    or the focal loss (``"focal"``) on ``[objectness, classes]``, and a
+    plain (not smooth) L1 sum on the regression masked by the objectness
+    target. ``num_pos`` is the sum of that mask. ``kernels`` as in
+    `fcos_loss`."""
+    if loss_type not in ("sigmoid", "focal"):
+        raise ValueError(f"unknown loss_type {loss_type!r}")
+    mask = y_true[..., 4]
+    if loss_type == "sigmoid":
+        cls_loss = sigmoid_bce_loss(y_true[..., 4:], y_pred[..., 4:])
+    else:
+        focal_loss, _ = _focal_fns(kernels)
+        cls_loss = focal_loss(y_true[..., 4:], y_pred[..., 4:])
+    reg_loss = (torch.abs(y_true[..., :4] - y_pred[..., :4])
+                * mask[..., None]).sum()
+    total = cls_loss + reg_lambda * reg_loss
+    return {"cls": cls_loss, "reg": reg_loss, "total": total,
+            "num_pos": mask.sum()}
+
+
+def stacked_hourglass_loss(
+    y_true: torch.Tensor,
+    y_pred: torch.Tensor,
+    *,
+    cls_lambda: float = 2.5,
+    reg_lambda: float = 1.0,
+    kernels=None,
+) -> dict:
+    """Stacked-hourglass loss over ``[B, h, w, 4+nc]`` maps: focal on the
+    class channels (read in place, ``4+nc`` columns a cell), smooth-L1 on
+    the raw (t, b, l, r) regression masked by the cells with any class hit
+    (``max(cls) > 0``), whose count is ``num_pos``. ``kernels`` as in
+    `fcos_loss`."""
+    focal_loss, _ = _focal_fns(kernels)
+    mask = (y_true[..., 4:].amax(dim=-1) > 0).to(torch.float32)
     cls_loss = focal_loss(y_true[..., 4:], y_pred[..., 4:])
     reg_loss = smooth_l1_loss(y_true[..., :4], y_pred[..., :4], mask=mask)
     total = cls_lambda * cls_loss + reg_lambda * reg_loss

@@ -270,9 +270,6 @@ def test_evaluate_cli_small_pool_and_checkpoint(tmp_path):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--family", "hourglass"], "hourglass half"),
-    (["--family", "stacked_hourglass"], "hourglass half"),
-    (["--family", "hourglass", "--n_filters", "8"], "hourglass half"),
     (["--data_parallel"], "Parallelism")])
 def test_evaluate_cli_refuses_what_waits(argv, match):
     with pytest.raises(NotImplementedError, match=match):

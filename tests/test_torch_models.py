@@ -130,13 +130,25 @@ def test_upsample2x(rng, method):
 
 
 def test_space_to_depth_roundtrip(rng):
-    x = rng.normal(size=(2, 4, 6, 3)).astype(np.float32)
-    want = np.asarray(JL.space_to_depth(jnp.asarray(x), 2))
-    got = TL.space_to_depth(torch.from_numpy(x), 2)
-    np.testing.assert_array_equal(got.numpy(), want)
-    np.testing.assert_array_equal(TL.depth_to_space(got, 2).numpy(), x)
-    np.testing.assert_array_equal(
-        np.asarray(JL.depth_to_space(jnp.asarray(want), 2)), x)
+    """The port's re-layouts run on NCHW (`HourglassNet` concatenates its
+    stage outputs with them) and pack the channels (dy, dx, c) as the JAX
+    package's NHWC functions do."""
+    for block in (2, 4, 8):
+        x = rng.normal(size=(2, 16, 8, 3 * block * block)).astype(
+            np.float32)
+        want = np.asarray(JL.space_to_depth(jnp.asarray(x), block))
+        got = TL.space_to_depth_nchw(
+            torch.from_numpy(x).permute(0, 3, 1, 2), block)
+        np.testing.assert_array_equal(got.permute(0, 2, 3, 1).numpy(), want)
+        np.testing.assert_array_equal(
+            TL.depth_to_space_nchw(got, block).permute(0, 2, 3, 1).numpy(),
+            x)
+        np.testing.assert_array_equal(
+            TL.depth_to_space_nchw(torch.from_numpy(x).permute(0, 3, 1, 2),
+                                   block).permute(0, 2, 3, 1).numpy(),
+            np.asarray(JL.depth_to_space(jnp.asarray(x), block)))
+        np.testing.assert_array_equal(
+            np.asarray(JL.depth_to_space(jnp.asarray(want), block)), x)
 
 
 def test_focal_bias_and_seeded_init():
