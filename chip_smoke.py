@@ -126,7 +126,22 @@ order:
    20]` of 24 and `[32, 40, 40, 4, 21]` of 25, each bitwise equal to its
    contiguous clone) and `dense_nms` at B = 8, M = 6,400 and 12,544 (the
    448 bucket);
-12. prints one JSON line ``{"kernels": [...]}`` and, last, the ``ok`` line.
+12. exported serving bundles: exports the checkpoints of phases 6, 7, 9
+   and 11 through `detectax_torch.cli.export_model` (buckets 1 and 8, one
+   `torch.export` program a bucket with the weights as call arguments;
+   the CLI's own verification must pass): FCOS-R50 at 384 px with the
+   default NMS (`dense_nms` in the program) and with combined-NMS
+   candidates (`nms_sweep` at K = 1,024), `CenterNetFPNSingle`-R50 (`peak`
+   and `dense_nms`), RetinaNet-R101 at 512 px (`dense_nms` at M = 49,104)
+   and `StackedHourglass` n_filters 64 with two stacks at 320 px
+   (`dense_nms` at M = 6,400); replays the request mix through
+   `load_bundle` and holds it against the live `Predictor` on the kernels
+   and on the plain versions (classes, valid and num_valid exactly, boxes
+   and scores to 1e-5), with one launch of each operator a chunk and no
+   parameter or buffer in any program; prints each bucket's export
+   seconds, the programs' bytes beside the weights file's, the load
+   seconds and the replayed and live request times;
+13. prints one JSON line ``{"kernels": [...]}`` and, last, the ``ok`` line.
 
 It imports `detectax_torch` only — nothing of JAX or of `detectax`.
 """
@@ -849,6 +864,11 @@ def check_focal_group(rng, case, *, timed=False):
         row["call_ms"] = time_ms(lambda: KF.focal_loss_group(segs),
                                  warmup=2, reps=50)
         row["single_calls_fwd_ms"] = queued_ms(single_fwd, reps=50)
+        # the plain version, and the library yardstick a segment each
+        row["plain_ms"] = queued_ms(
+            lambda: KF.focal_loss_group_plain(segs), reps=20)
+        row["library_ms"] = queued_ms(
+            lambda: [library_focal(z, x) for z, x, _ in segs], reps=20)
     row["fwd_bwd_ms"] = queued_ms(grouped_fwd_bwd, reps=50)
     row["fwd_bwd_call_ms"] = time_ms(grouped_fwd_bwd, warmup=2, reps=50)
     row["single_calls_fwd_bwd_ms"] = queued_ms(single_fwd_bwd, reps=50)
@@ -1380,11 +1400,13 @@ def train_path():
 # phase 6: the command-line trainer, and serving from its checkpoint
 # --------------------------------------------------------------------------
 
-def cli_path():
+def cli_path(ckpt_root):
+    """`cli.train_fcos` for 4 steps; its checkpoint goes to
+    ``ckpt_root/fcos``, which the export phase reads."""
     from detectax_torch.cli import train_fcos
 
     with tempfile.TemporaryDirectory() as tmp:
-        ckpt_dir = os.path.join(tmp, "ckpt")
+        ckpt_dir = os.path.join(ckpt_root, "fcos")
         kcommon.reset_launch_counts()
         summary = train_fcos.main([
             "--backbone", BACKBONE, "--canvas", str(CANVAS),
@@ -1655,12 +1677,12 @@ def centernet_train_path():
                     "step_ms_mean_after_first": sum(steady) / len(steady)}
 
 
-def centernet_cli_path():
+def centernet_cli_path(ckpt_root):
     from detectax_torch.cli import train_centernet_heatmap
 
     steps = 3
     with tempfile.TemporaryDirectory() as tmp:
-        ckpt_dir = os.path.join(tmp, "ckpt")
+        ckpt_dir = os.path.join(ckpt_root, "centernet_heatmap")
         kcommon.reset_launch_counts()
         summary = train_centernet_heatmap.main([
             "--backbone", BACKBONE, "--canvas", str(CANVAS),
@@ -2302,15 +2324,16 @@ def retinanet_train_path():
                     "step_ms_mean_after_first": sum(steady) / len(steady)}
 
 
-def retinanet_cli_path():
+def retinanet_cli_path(ckpt_root):
     """`cli.train_retinanet_coco` for 2 steps at 512 px, batch 16, on the
-    synthetic dataset, then one 8-image request from its checkpoint on the
-    kernels and on the plain versions."""
+    synthetic dataset (checkpoint under ``ckpt_root/retinanet``), then one
+    8-image request from its checkpoint on the kernels and on the plain
+    versions."""
     from detectax_torch.cli import train_retinanet_coco
 
     steps = 2
     with tempfile.TemporaryDirectory() as tmp:
-        ckpt_dir = os.path.join(tmp, "ckpt")
+        ckpt_dir = os.path.join(ckpt_root, "retinanet")
         kcommon.reset_launch_counts()
         summary = train_retinanet_coco.main([
             "--backbone", RN_BACKBONE, "--canvas", str(RN_CANVAS),
@@ -2731,12 +2754,13 @@ def hourglass_train_path():
     return counts, bf16_counts, out
 
 
-def hourglass_cli_path():
+def hourglass_cli_path(ckpt_root):
     """`cli.train_hourglass_voc --variant stacked --multi_scale 256 320`
     (batch 16 in the trainer's microbatches of 2) and the sigmoid
-    `HourglassNet` (batch 32), 2 steps each on the synthetic dataset; one
-    8-image request from the stacked checkpoint on the kernels and on the
-    plain versions."""
+    `HourglassNet` (batch 32), 2 steps each on the synthetic dataset
+    (checkpoints under ``ckpt_root/hourglass_<run>``); one 8-image request
+    from the stacked checkpoint on the kernels and on the plain
+    versions."""
     from detectax_torch.cli import train_hourglass_voc
 
     stacked = ["--variant", "stacked", "--n_filters",
@@ -2751,7 +2775,7 @@ def hourglass_cli_path():
     out, counts = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         for name, extra in runs.items():
-            ckpt_dir = os.path.join(tmp, name)
+            ckpt_dir = os.path.join(ckpt_root, "hourglass_" + name)
             kcommon.reset_launch_counts()
             summary = train_hourglass_voc.main([
                 "--canvas", str(HG_CANVAS), "--max_steps", str(HG_CLI_STEPS),
@@ -2779,8 +2803,8 @@ def hourglass_cli_path():
                                  n_filters=HG_WIDTHS["stacked_hourglass"],
                                  n_stacks=HG_STACKS).to(DEV)
         fresh = model.cnn_out.weight.clone()
-        restore_for_inference(os.path.join(tmp, "stacked_multi_scale"),
-                              model)
+        restore_for_inference(
+            os.path.join(ckpt_root, "hourglass_stacked_multi_scale"), model)
         check(not torch.equal(fresh, model.cnn_out.weight),
               "restore left the model's weights as they were")
     decode = hourglass_decode_fn("stacked_hourglass", stride=4)
@@ -2908,6 +2932,152 @@ def hourglass_detbench_path():
 
 
 # --------------------------------------------------------------------------
+# phase 12: exported serving bundles (cli.export_model, load_bundle)
+# --------------------------------------------------------------------------
+
+# bundle: (cli.export_model arguments, backbone, checkpoint under the kept
+# root, canvas, the operators one chunk launches)
+EXPORTS = {
+    "fcos": (["--family", "fcos"], BACKBONE, "fcos", CANVAS,
+             {"dense_nms": 1}),
+    "fcos_candidates": (["--family", "fcos", "--class_aware_candidates"],
+                        BACKBONE, "fcos", CANVAS, {"nms_sweep": 1}),
+    "centernet_heatmap": (["--family", "centernet_heatmap"], BACKBONE,
+                          "centernet_heatmap", CANVAS,
+                          {"peak": 1, "dense_nms": 1}),
+    "retinanet": (["--family", "retinanet"], RN_BACKBONE, "retinanet",
+                  RN_CANVAS, {"dense_nms": 1}),
+    "stacked_hourglass": (
+        ["--family", "stacked_hourglass", "--n_filters",
+         str(HG_WIDTHS["stacked_hourglass"]), "--n_stacks", str(HG_STACKS)],
+        None, "hourglass_stacked_multi_scale", HG_CANVAS, {"dense_nms": 1}),
+}
+EXPORT_CLASSES = 3  # the synthetic dataset's, which the checkpoints have
+
+
+def export_path(ckpt_root):
+    """Each checkpoint of `EXPORTS` through `cli.export_model` (buckets 1
+    and 8, no score threshold: the few training steps leave every score
+    near the focal prior; its own verification must pass), then the
+    bundle through `load_bundle` over the request mix: the replay is
+    counted (one launch of each operator a chunk), its detections equal
+    those of the live `Predictor` on the kernels and of the live path on
+    the plain versions (classes, valid and num_valid exactly, boxes and
+    scores to 1e-5), and every program holds no parameter and no buffer.
+    Times: each bucket's export (manifest), the load, and each request
+    replayed and live (host clock; the faster of two passes, in turns)."""
+    from types import SimpleNamespace
+
+    from detectax_torch.cli import evaluate, export_model
+    from detectax_torch.infer.export import (
+        PROGRAM_NAME,
+        WEIGHTS_NAME,
+        load_bundle,
+    )
+
+    family_args = SimpleNamespace(
+        center=False, box_scales=list(S8_SCALES), anchor_sizes=list(RN_SIZES),
+        n_filters=HG_WIDTHS["stacked_hourglass"], n_stacks=HG_STACKS,
+        per_anchor_heads=False)
+    rng = np.random.default_rng(SEED + 70)
+    out, counts = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (cli_args, backbone, ckpt, canvas, per_chunk) in \
+                EXPORTS.items():
+            family = cli_args[1]
+            bundle = os.path.join(tmp, name)
+            t0 = time.perf_counter()
+            res = export_model.main([
+                *cli_args, *(["--backbone", backbone] if backbone else []),
+                "--ckpt_dir", os.path.join(ckpt_root, ckpt),
+                "--num_classes", str(EXPORT_CLASSES),
+                "--canvas", str(canvas), "--out_dir", bundle,
+                "--buckets", *map(str, BUCKETS), "--cls_thresh", "0.0"])
+            cli_s = time.perf_counter() - t0
+            manifest = res["manifest"]
+            candidates = "--class_aware_candidates" in cli_args
+            check(manifest["device"] == str(DEV)
+                  and manifest["fused"] is not candidates,
+                  f"{name} bundle: device {manifest['device']}, fused "
+                  f"{manifest['fused']}")
+            pt2 = {}
+            for b in manifest["buckets"]:
+                path = os.path.join(bundle, PROGRAM_NAME.format(b))
+                sig = torch.export.load(path).graph_signature
+                check(not sig.parameters and not sig.buffers,
+                      f"{name} bucket {b}: the program holds "
+                      f"{len(sig.parameters)} parameters and "
+                      f"{len(sig.buffers)} buffers")
+                pt2[str(b)] = os.path.getsize(path)
+            t0 = time.perf_counter()
+            replay = load_bundle(bundle, device=DEV)
+            load_s = time.perf_counter() - t0
+
+            model, decode = evaluate.build_family(
+                family, EXPORT_CLASSES, backbone, canvas, family_args)
+            model = restore_for_inference(os.path.join(ckpt_root, ckpt),
+                                          model.to(DEV))
+            plain_decode = (centernet_decode_fn(family, kernels="plain")
+                            if family == "centernet_heatmap" else decode)
+            nms = dict(score_thresh=0.0, class_aware_candidates=candidates)
+            live = Predictor.for_model(
+                make_serving_fn(model, decode, fused=manifest["fused"],
+                                **nms),
+                model, canvas=canvas, buckets=BUCKETS, device=DEV)
+            plain = Predictor.for_model(
+                make_serving_fn(model, plain_decode, kernels="plain", **nms),
+                model, canvas=canvas, buckets=BUCKETS, device=DEV)
+            requests = [rng.uniform(-1, 1, size=(n, canvas, canvas, 3))
+                        .astype(np.float32) for n in REQUESTS]
+            replay.warmup()
+            live.warmup()
+            kcommon.reset_launch_counts()
+            replayed, replay_s = serve(replay, requests)
+            counts[name] = kcommon.launch_counts()
+            chunks = sum(len(replay._plan(n)) for n in REQUESTS)
+            want = {k: v * chunks for k, v in per_chunk.items()}
+            check(counts[name] == want,
+                  f"{name} replay launched {counts[name]}, expected {want}")
+            lived, live_s = serve(live, requests)
+            plained, _ = serve(plain, requests)
+            replay_s = np.minimum(replay_s, serve(replay, requests)[1])
+            live_s = np.minimum(live_s, serve(live, requests)[1])
+            for n, got, want_live, want_plain in zip(REQUESTS, replayed,
+                                                     lived, plained):
+                check(got["boxes"].shape == (n, 100, 4)
+                      and np.isfinite(got["boxes"]).all()
+                      and np.isfinite(got["scores"]).all()
+                      and (got["num_valid"] > 0).all()
+                      and (got["classes"][got["valid"]]
+                           < EXPORT_CLASSES).all(),
+                      f"{name} replay of {n} images: wrong shapes, "
+                      "non-finite, no or impossible detections")
+                same_detections(f"{name} replay vs live kernels, {n} images",
+                                got, want_live)
+                same_detections(f"{name} replay vs plain versions, {n} "
+                                "images", got, want_plain)
+            images = sum(REQUESTS)
+            out[name] = {
+                "canvas": canvas, "cli_s": cli_s,
+                "export_s_by_bucket": manifest["export_seconds"],
+                "verify_max_abs_diff": res["verify_max_abs_diff"],
+                "pt2_bytes_by_bucket": pt2,
+                "weights_npz_bytes": os.path.getsize(
+                    os.path.join(bundle, WEIGHTS_NAME)),
+                "load_s": load_s,
+                "replay_request_ms": [1e3 * t for t in replay_s],
+                "live_request_ms": [1e3 * t for t in live_s],
+                "replay_images_per_s": images / float(np.sum(replay_s)),
+                "live_images_per_s": images / float(np.sum(live_s)),
+                "launches": counts[name],
+            }
+            log(f"exported {name}: " + json.dumps(out[name]))
+            del replay, live, plain, model
+            torch.cuda.empty_cache()
+    return counts, out
+
+
+# --------------------------------------------------------------------------
 
 def main() -> None:
     if not torch.cuda.is_available():
@@ -2926,6 +3096,9 @@ def main() -> None:
     log(f"device: {kind} | torch {torch.__version__} cuda {torch.version.cuda}")
     log(f"nvidia-smi name, power.limit: {card}")
     log(f"tf32: {json.dumps(runtime.set_tf32(False))}")
+    # the CLI phases' checkpoints, which the export phase reads; removed at
+    # the end (and at exit, should a phase fail)
+    ckpts = tempfile.TemporaryDirectory()
 
     kcommon.load_library(verbose=True)
     K.load_kernels()
@@ -3052,7 +3225,7 @@ def main() -> None:
     log("training " + json.dumps({
         "card": card, "model": f"FCOS {BACKBONE} FPN", "canvas": CANVAS,
         "dtype": "float32", "classes": NUM_CLASSES, **training}))
-    log("cli " + json.dumps(cli_path()))
+    log("cli " + json.dumps(cli_path(ckpts.name)))
 
     cn_counts, cn_serving, cn_stages = centernet_serving_path()
     log("centernet_serving " + json.dumps({
@@ -3064,7 +3237,7 @@ def main() -> None:
         "card": card, "model": f"CenterNetFPNSingle {BACKBONE}",
         "canvas": CANVAS, "dtype": "float32", "classes": NUM_CLASSES,
         **cn_training}))
-    log("centernet_cli " + json.dumps(centernet_cli_path()))
+    log("centernet_cli " + json.dumps(centernet_cli_path(ckpts.name)))
     s8_train_counts, s8_training = s8_train_path()
     log("centernet_s8_training " + json.dumps({
         "card": card, "model": f"CenterNetS8 {BACKBONE}", "dtype": "float32",
@@ -3091,7 +3264,7 @@ def main() -> None:
         "canvas": RN_CANVAS, "dtype": "float32", "classes": RN_CLASSES,
         **rn_training}))
     torch.cuda.empty_cache()
-    log("retinanet_cli " + json.dumps(retinanet_cli_path()))
+    log("retinanet_cli " + json.dumps(retinanet_cli_path(ckpts.name)))
     torch.cuda.empty_cache()
     rn_db_train_counts, rn_db_counts, rn_detbench = retinanet_detbench_path()
     log("retinanet_detbench_v2 " + json.dumps({
@@ -3118,7 +3291,7 @@ def main() -> None:
     log("hourglass_training " + json.dumps({
         "card": card, "canvas": HG_CANVAS, "classes": NUM_CLASSES,
         "dtype": "float32, then bfloat16", **hg_training}))
-    hg_cli_counts, hg_cli = hourglass_cli_path()
+    hg_cli_counts, hg_cli = hourglass_cli_path(ckpts.name)
     log("hourglass_cli " + json.dumps(hg_cli))
     torch.cuda.empty_cache()
     hg_db_train_counts, hg_db_counts, hg_detbench = hourglass_detbench_path()
@@ -3126,10 +3299,21 @@ def main() -> None:
         "card": card, "model": "StackedHourglass n_filters 64, 2 stacks",
         "canvas": HG_CANVAS, "dtype": "bfloat16", **hg_detbench}))
     log(f"hourglass phase took {time.perf_counter() - t_hg:.1f} s")
+    torch.cuda.empty_cache()
+
+    t_export = time.perf_counter()
+    ex_counts, exported = export_path(ckpts.name)
+    export_s = time.perf_counter() - t_export
+    log("exported_serving " + json.dumps({
+        "card": card, "buckets": BUCKETS, "requests": REQUESTS,
+        "dtype": "float32", "phase_s": export_s, "bundles": exported}))
+    ckpts.cleanup()
 
     by_path = {
         "nms_sweep": {"fcos_serving": counts["nms_sweep"],
-                      "hourglass_serving": hg_counts["nms_sweep"]},
+                      "hourglass_serving": hg_counts["nms_sweep"],
+                      "fcos_exported_serving":
+                          ex_counts["fcos_candidates"]["nms_sweep"]},
         "dense_nms": {"fcos_serving": counts["dense_nms"],
                       "centernet_serving": cn_counts["dense_nms"],
                       "detbench_evaluation": db_counts["dense_nms"],
@@ -3140,7 +3324,15 @@ def main() -> None:
                       "stacked_hourglass_cli_request":
                           hg_cli_counts["request"]["dense_nms"],
                       "stacked_hourglass_detbench_v2_evaluation":
-                          hg_db_counts["dense_nms"]},
+                          hg_db_counts["dense_nms"],
+                      "fcos_exported_serving":
+                          ex_counts["fcos"]["dense_nms"],
+                      "centernet_exported_serving":
+                          ex_counts["centernet_heatmap"]["dense_nms"],
+                      "retinanet_exported_serving":
+                          ex_counts["retinanet"]["dense_nms"],
+                      "stacked_hourglass_exported_serving":
+                          ex_counts["stacked_hourglass"]["dense_nms"]},
         "focal": {"fcos_training": train_counts["focal_fwd"],
                   "centernet_training": cn_train_counts["focal_fwd"],
                   "centernet_s8_training": s8_train_counts["focal_fwd"],
@@ -3159,7 +3351,9 @@ def main() -> None:
                       hg_cli_counts["stacked_multi_scale"]["focal_fwd"],
                   "stacked_hourglass_detbench_v2_bf16_training":
                       hg_db_train_counts["focal_fwd"]},
-        "peak": {"centernet_serving": cn_counts["peak"]},
+        "peak": {"centernet_serving": cn_counts["peak"],
+                 "centernet_exported_serving":
+                     ex_counts["centernet_heatmap"]["peak"]},
     }
     for name, paths in by_path.items():
         check(all(n > 0 for n in paths.values()),
@@ -3187,6 +3381,8 @@ def main() -> None:
     focal[0]["all_levels_fwd_bwd_call_ms"] = grouped["fwd_bwd_call_ms"]
     focal[0]["all_levels_bound_ms"] = grouped["bound_ms"]
     focal[0]["all_levels_fwd_bwd_bound_ms"] = grouped["fwd_bwd_bound_ms"]
+    focal[0]["all_levels_plain_ms"] = grouped["plain_ms"]
+    focal[0]["all_levels_library_ms"] = grouped["library_ms"]
     focal[0]["five_calls_fwd_ms"] = sum(r["ms"] for r in levels)
     focal[0]["five_calls_fwd_bwd_ms"] = sum(r["fwd_bwd_ms"] for r in levels)
     focal[0]["focal_loss_group"] = groups

@@ -11,7 +11,10 @@ Ported so far: the FCOS serving path (`infer.serving.Predictor` →
 FCOS training path (all three assignment variants) with the focal-loss
 kernel, the serving and training paths of the ResNet-backbone CenterNet
 family with the peak-decode kernel, and DetBench with the evaluation CLI
-(`cli.evaluate`, `eval.detection_metrics`).
+(`cli.evaluate`, `eval.detection_metrics`); later the RetinaNet and
+hourglass families, and exported serving bundles (`cli.export_model`:
+one `torch.export` program a batch bucket, the serving kernels as the
+`torch.library` operators of `kernels.ops`).
 """
 
 __version__ = "0.1.0"

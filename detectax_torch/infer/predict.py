@@ -188,6 +188,29 @@ def retinanet_decode(
     return torch.cat(all_boxes, dim=1), torch.cat(all_probs, dim=1)
 
 
+def resolve_fused(
+    fused: bool | None,
+    device: torch.device,
+    *,
+    mode: str = "hard",
+    class_aware_candidates: bool = False,
+    kernels=None,
+) -> bool:
+    """The structure `detections_from_dense` takes on ``device``: ``fused``
+    when given, else the one-kernel dense path for the hard / argmax-class
+    configuration on a CUDA device (or under ``kernels="plain"``), and the
+    two-stage path otherwise (always under ``kernels=False``). An export
+    resolves it once for the device it traces on and records the value,
+    as the JAX package's ``--fused auto`` resolves per platform."""
+    if fused is not None:
+        return bool(fused)
+    if kernels is False:
+        return False  # kernel-free: two-stage everywhere
+    if mode == "hard" and not class_aware_candidates:
+        return torch.device(device).type == "cuda" or kernels == "plain"
+    return False  # soft/combined: two-stage only
+
+
 def detections_from_dense(
     boxes: torch.Tensor,
     probs: torch.Tensor,
@@ -228,14 +251,9 @@ def detections_from_dense(
     boxes = boxes.to(torch.float32)
     probs = probs.to(torch.float32)
 
-    if fused is None:
-        if kernels is False:
-            fused = False  # kernel-free: two-stage everywhere
-        elif mode == "hard" and not class_aware_candidates:
-            fused = boxes.is_cuda or kernels == "plain"
-        else:
-            fused = False  # soft/combined: two-stage only
-
+    fused = resolve_fused(fused, boxes.device, mode=mode,
+                          class_aware_candidates=class_aware_candidates,
+                          kernels=kernels)
     if fused:
         return nms_lib.dense_nms(
             boxes, probs.amax(dim=-1),

@@ -20,9 +20,12 @@ what each design does to shorten the chain; `PERF.md` and
 Beside each wrapper stands its plain PyTorch version (`nms_sweep_plain`,
 `dense_nms_plain`), the same arithmetic in the same order, vectorised over
 the batch; `suppression_bits_plain` and `sweep_bits_plain` are the plain
-model of the sweep's two launches. A wrapper takes the plain version only
-for a tensor on the CPU; for a CUDA tensor it launches the kernel or
-raises. `_sweep_plan` and `_dense_plan` are the launch shapes, pure
+model of the sweep's two launches. A wrapper checks and batches its
+arguments and calls its operator (``detectax_torch::nms_sweep``,
+``detectax_torch::dense_nms``: `kernels.ops`, where the launches live),
+which takes the plain version only for a tensor on the CPU; for a CUDA
+tensor it launches the kernel or raises. `_sweep_plan` and `_dense_plan`
+are the launch shapes, pure
 functions of K and M, each in tiers with no upper bound of its own:
 
 * `nms_sweep` up to K = 14,464 runs the ring sweep (two or more 64-row
@@ -343,35 +346,9 @@ def nms_sweep(
     sweep kernels (one entry point, ``B * 64 W * W`` words of scratch); on
     a CPU tensor it runs `nms_sweep_plain`.
     """
-    if not boxes.is_cuda:
-        return nms_sweep_plain(boxes, iou_thresh, valid, classes)
     _same_device(boxes, valid=valid, classes=classes)
     squeeze, (b, v, c) = _batched(boxes, valid, classes)
-    batch, k = b.shape[:2]
-    keep = torch.empty((batch, k), dtype=torch.bool, device=b.device)
-    if batch == 0 or k == 0:
-        return keep[0] if squeeze else keep
-    b = b.to(torch.float32).contiguous()
-    c = None if c is None else c.to(torch.int32).contiguous()
-    v = None if v is None else v.to(torch.bool).contiguous()
-    if b.data_ptr() % 16:
-        raise ValueError("boxes storage must be 16-byte aligned")
-    words = _words(k)
-    # the scratch first: past what a card holds, its allocation raises
-    mask = torch.empty((batch, _TILE * words, words), dtype=torch.int64,
-                       device=b.device)
-    plan = _sweep_plan(k)
-    lib = load_kernels()
-    with torch.cuda.device(b.device):
-        code = lib.detectax_nms_sweep(
-            b.data_ptr(),
-            None if c is None else c.data_ptr(),
-            None if v is None else v.data_ptr(),
-            mask.data_ptr(), keep.data_ptr(), batch, k, float(iou_thresh),
-            plan["stages"], torch.cuda.current_stream().cuda_stream,
-        )
-    _common.check_launch(code, "nms_sweep")
-    _common.count_launch("nms_sweep")
+    keep = torch.ops.detectax_torch.nms_sweep(b, float(iou_thresh), v, c)
     return keep[0] if squeeze else keep
 
 
@@ -470,50 +447,9 @@ def dense_nms(
     (any M: the candidates in registers, shared memory or device memory);
     on a CPU tensor it runs `dense_nms_plain`.
     """
-    kw = dict(iou_thresh=iou_thresh, score_thresh=score_thresh,
-              max_outputs=max_outputs, class_aware=class_aware)
-    if not boxes.is_cuda:
-        return dense_nms_plain(boxes, scores, classes, **kw)
     _same_device(boxes, scores=scores, classes=classes)
     squeeze, (b, s, c) = _batched(boxes, scores, classes)
-    batch, m = s.shape
-    plan = _dense_plan(m) if m else None
-    dev = b.device
-    if batch == 0 or max_outputs == 0 or m == 0:
-        # nothing to launch: every output column is empty
-        return _detections(
-            torch.zeros((batch, max_outputs, 4), device=dev),
-            torch.zeros((batch, max_outputs), device=dev),
-            torch.full((batch, max_outputs), -1, dtype=torch.int32,
-                       device=dev),
-            torch.zeros((batch, max_outputs), dtype=torch.bool, device=dev),
-            squeeze,
-        )
-    ob = torch.empty((batch, max_outputs, 4), dtype=torch.float32, device=dev)
-    os_ = torch.empty((batch, max_outputs), dtype=torch.float32, device=dev)
-    oc = torch.empty((batch, max_outputs), dtype=torch.int32, device=dev)
-    ov = torch.empty((batch, max_outputs), dtype=torch.bool, device=dev)
-    b = b.to(torch.float32).contiguous()
-    s = s.to(torch.float32).contiguous()
-    c = None if c is None else c.to(torch.int32).contiguous()
-    if b.data_ptr() % 16 or ob.data_ptr() % 16:
-        raise ValueError("boxes storage must be 16-byte aligned")
-    lib = load_kernels()
-    common = (b.data_ptr(), s.data_ptr(), None if c is None else c.data_ptr())
-    outs = (ob.data_ptr(), os_.data_ptr(), oc.data_ptr(), ov.data_ptr(),
-            batch, m, int(max_outputs), float(iou_thresh),
-            float(score_thresh), int(bool(class_aware)),
-            plan["cluster"], plan["threads"])
-    live = (torch.empty((batch, m), dtype=torch.float32, device=dev)
-            if plan["tier"] == "device" else None)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        if plan["tier"] == "registers":
-            code = lib.detectax_dense_nms(*common, *outs, plan["per"], stream)
-        else:
-            code = lib.detectax_dense_nms_mem(
-                *common, None if live is None else live.data_ptr(), *outs,
-                int(plan["tier"] == "shared"), stream)
-    _common.check_launch(code, "dense_nms")
-    _common.count_launch("dense_nms")
-    return _detections(ob, os_, oc, ov, squeeze)
+    out = torch.ops.detectax_torch.dense_nms(
+        b, s, c, float(iou_thresh), float(score_thresh), int(max_outputs),
+        bool(class_aware))
+    return _detections(*out, squeeze)

@@ -32,8 +32,10 @@ Beside the wrappers stand the plain versions `peak_scores_plain` and
 `peak_mask_scores_plain`: pad with -1, maximum of the eight shifted
 slices, select. `peak_bands_plain` is the plain model of the kernel's
 decomposition (one staged band, tile and halo at a time, as `_peak_plan`
-cuts them). A wrapper takes its plain version only for a tensor on the
-CPU; for a CUDA tensor it launches the kernel or raises.
+cuts them). A wrapper calls the operator ``detectax_torch::peak``
+(`kernels.ops`, where the launch lives), which takes the plain version
+only for a tensor on the CPU; for a CUDA tensor it launches the kernel or
+raises.
 """
 from __future__ import annotations
 
@@ -168,40 +170,20 @@ def peak_bands_plain(t: torch.Tensor, apply_sigmoid: bool = False
     return out.reshape(x.shape)
 
 
-def _launch(t: torch.Tensor, apply_sigmoid: bool) -> torch.Tensor:
-    _check_map(t)
-    shape = tuple(t.shape)
-    batch, (h, w, c) = (1 if t.ndim == 3 else shape[0]), shape[-3:]
-    x, _, _, stride = _common.as_rows(t.detach().to(torch.float32))
-    out = torch.empty(shape, dtype=torch.float32, device=t.device)
-    if out.numel() == 0:
-        return out
-    plan = _peak_plan(h, w, c, batch)
-    lib = load_kernels()
-    with torch.cuda.device(t.device):
-        code = lib.detectax_peak(
-            x.data_ptr(), stride, batch, h, w, c, plan["rows"],
-            plan["col_tile"], plan["chan_tile"], int(apply_sigmoid),
-            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    _common.check_launch(code, "peak")
-    _common.count_launch("peak")
-    return out
-
-
 def peak_scores(logits: torch.Tensor) -> torch.Tensor:
     """Class logits ``[B, h, w, C]`` (or ``[H, W, P]``) -> sigmoid scores
     masked to their 3x3 local peaks, zeros elsewhere. Launches the kernel
-    on a CUDA tensor; runs `peak_scores_plain` on a CPU tensor."""
-    if not logits.is_cuda:
-        return peak_scores_plain(logits)
-    return _launch(logits, True)
+    on a CUDA tensor; runs `peak_scores_plain` on a CPU tensor (the
+    operator ``detectax_torch::peak`` picks by device)."""
+    _check_map(logits)
+    return torch.ops.detectax_torch.peak(logits, True)
 
 
 def peak_mask_scores(scores: torch.Tensor) -> torch.Tensor:
     """Pre-computed scores (e.g. sigma(cls) * sigma(cen)) ``[B, h, w, C]``
     (or ``[H, W, P]``) -> the same maps masked to their 3x3 local peaks.
     Same kernel, sigmoid skipped. Launches the kernel on a CUDA tensor;
-    runs `peak_mask_scores_plain` on a CPU tensor."""
-    if not scores.is_cuda:
-        return peak_mask_scores_plain(scores)
-    return _launch(scores, False)
+    runs `peak_mask_scores_plain` on a CPU tensor (the operator
+    ``detectax_torch::peak`` picks by device)."""
+    _check_map(scores)
+    return torch.ops.detectax_torch.peak(scores, False)

@@ -26,6 +26,13 @@ from detectax_torch.ops.pool import pad_same
 FOCAL_BIAS = math.log(0.01 / 0.99)
 
 
+def cast(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` in ``dtype``: ``t`` itself where it already is (as
+    ``Tensor.to`` returns it), so that a traced graph holds no cast, and
+    no assertion of one, where the compute dtype is the parameters'."""
+    return t if t.dtype == dtype else t.to(dtype)
+
+
 def bn_f32_stats() -> bool:
     """Whether BatchNorm statistics reduce in float32 (the default).
     ``DETECTAX_BN_BF16_STATS=1`` reduces them in the compute dtype instead
@@ -100,14 +107,14 @@ class BatchNorm(nn.Module):
                     var.to(torch.float32), alpha=1.0 - m)
         elif dtype == torch.float32:
             return F.batch_norm(
-                x.to(dtype), self.running_mean, self.running_var,
+                cast(x, dtype), self.running_mean, self.running_var,
                 self.weight, self.bias, False, 0.0, self.epsilon,
             )
         else:
             mean, var = self.running_mean, self.running_var
         shape = (1, -1, 1, 1)
         xd, mean, var, scale, bias = (
-            t.to(dtype) for t in (x, mean, var, self.weight, self.bias))
+            cast(t, dtype) for t in (x, mean, var, self.weight, self.bias))
         return ((xd - mean.view(shape))
                 * torch.rsqrt(var.view(shape) + self.epsilon)
                 * scale.view(shape) + bias.view(shape))
@@ -139,13 +146,13 @@ class Conv(nn.Conv2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype = self.compute_dtype
-        x = x.to(dtype)
+        x = cast(x, dtype)
         if self.pad_mode == "SAME":
             x = pad_same(x, self.kernel_size[0], self.stride[0])
         elif self.pad_mode != "VALID":
             x = F.pad(x, self.pad_mode)
-        bias = None if self.bias is None else self.bias.to(dtype)
-        return F.conv2d(x, self.weight.to(dtype), bias, self.stride, 0,
+        bias = None if self.bias is None else cast(self.bias, dtype)
+        return F.conv2d(x, cast(self.weight, dtype), bias, self.stride, 0,
                         self.dilation, self.groups)
 
 
@@ -373,7 +380,7 @@ class FocalBias(nn.Module):
         self.bias = nn.Parameter(torch.tensor(self.init_value))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x + self.bias.to(x.dtype)
+        return x + cast(self.bias, x.dtype)
 
 
 def init_parameters(module: nn.Module, generator: torch.Generator) -> None:

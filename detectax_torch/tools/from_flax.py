@@ -42,16 +42,10 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from detectax_torch.models.backbones import (
-    MobileNetV2,
-    ResNet,
-    TinyBackbone,
-)
-
-# the names Flax gives a trunk inside a detector
-BACKBONE_FLAX_NAMES = tuple(
-    cls.flax_name for cls in (ResNet, MobileNetV2, TinyBackbone)
-)
+# the names Flax gives a trunk inside a detector (the ``flax_name`` of
+# `models.backbones.ResNet`, `MobileNetV2` and `TinyBackbone`), written
+# out so that reading a weights file imports no model code
+BACKBONE_FLAX_NAMES = ("ResNet_0", "MobileNetV2_0", "TinyBackbone_0")
 
 _PARAM_LEAVES = {"kernel": "weight", "bias": "bias", "scale": "weight"}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}

@@ -124,6 +124,48 @@ def test_centernet_slice_runs_without_jax_or_a_build(tmp_path):
     assert "served" in res.stdout and "trained 2" in res.stdout
 
 
+REPLAY_EXPORTED_BUNDLE = r"""
+import sys
+import numpy as np
+from detectax_torch.infer.export import load_bundle
+
+pred = load_bundle(sys.argv[1], device="cpu")
+out = pred.predict(np.zeros((3, 64, 64, 3), np.float32))
+assert out["boxes"].shape == (3, 8, 4), out["boxes"].shape
+assert (out["num_valid"] > 0).all()
+models = sorted(m for m in sys.modules
+                if m.startswith("detectax_torch.models"))
+assert not models, models
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in %r)
+assert not bad, bad
+import detectax_torch.kernels._common as kc
+assert kc._lib is None and kc.launch_counts() == {}
+print("replayed", int(out["num_valid"].sum()))
+""" % (FORBIDDEN + ("triton",),)
+
+
+def test_exported_bundle_replays_without_model_code(tmp_path):
+    """A v2 bundle (one `torch.export` program a bucket) is loaded and
+    served in a fresh interpreter that imports no module of
+    `detectax_torch.models`, nothing forbidden and no `triton`."""
+    from detectax_torch.infer.export import save_bundle
+    from detectax_torch.models import FCOS
+
+    model = FCOS(num_classes=3, backbone="tiny")
+    save_bundle(str(tmp_path / "b"), model, canvas=64, buckets=(2,),
+                export_device="cpu", fused=True, top_k=32, max_outputs=8,
+                score_thresh=0.0)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    res = subprocess.run(
+        [sys.executable, "-c", REPLAY_EXPORTED_BUNDLE, str(tmp_path / "b")],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "replayed" in res.stdout
+
+
 def test_every_port_module_imports_without_a_build():
     """Importing any module of the port builds nothing and imports neither
     `triton` nor a forbidden package (the kernels are built at first use
@@ -140,7 +182,7 @@ def test_every_port_module_imports_without_a_build():
                 "eval.detection_metrics", "cli.evaluate", "cli._eval_hooks",
                 "cli.train_fcos_center_voc", "cli.train_fcos_center_v1_voc",
                 "ops.anchors", "models.retinanet", "cli.train_retinanet_coco",
-                "cli.infer_retinanet"):
+                "cli.infer_retinanet", "kernels.ops", "cli.export_model"):
         assert f"detectax_torch.{new}" in mods
     code = (
         "import importlib, sys\n"
