@@ -141,7 +141,23 @@ order:
    parameter or buffer in any program; prints each bucket's export
    seconds, the programs' bytes beside the weights file's, the load
    seconds and the replayed and live request times;
-13. prints one JSON line ``{"kernels": [...]}`` and, last, the ``ok`` line.
+13. data parallelism (`detectax_torch.parallel`): trains 3 steps of
+   FCOS-R50 at 384 px, global batch 16, through `torchrun
+   --nproc_per_node 1 -m detectax_torch.cli.train_fcos` (NCCL) and
+   through the same CLI in this process, step 1's ``total``, ``cls`` and
+   ``grad_norm`` equal to 1e-6; under torchrun, the step with a group of
+   one (NCCL) against the step without one in the same process, fp32 and
+   bf16, with the collectives a step and the time of an all-reduce of a
+   BatchNorm layer's moments and of the gradient; two gloo ranks sharing
+   the card (NCCL refuses two ranks on one card; both build the kernels
+   at once from an empty build) on the same 3 global batches as phase 5,
+   step 1 equal to phase 5's to `PATHS_RTOL`, each rank launching focal
+   once forward and once backward a step; `cli.evaluate --data_parallel`
+   at batch 8 on the two ranks over 16 synthetic images from phase 6's
+   checkpoint against `cli.evaluate` in this process at a rank's batch
+   (4, the shape each image's forward has on a rank: cuDNN picks its
+   algorithm by the shape), the same detections exactly;
+14. prints one JSON line ``{"kernels": [...]}`` and, last, the ``ok`` line.
 
 It imports `detectax_torch` only — nothing of JAX or of `detectax`.
 """
@@ -3078,6 +3094,226 @@ def export_path(ckpt_root):
 
 
 # --------------------------------------------------------------------------
+# phase 13: data parallelism (torchrun over NCCL; two gloo ranks, one card)
+# --------------------------------------------------------------------------
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+DP_STEPS = TRAIN_STEPS
+NCCL_RTOL = 1e-6   # one rank over NCCL against the same process alone
+TORCHRUN = (sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc_per_node", "1")
+
+
+def run_process(cmd, timeout: float) -> str:
+    """Run ``cmd`` from the checkout in a session of its own; kill the
+    session (torchrun and its workers) if it runs past ``timeout``.
+    Returns its output; fails the run on a non-zero exit."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (REPO, os.environ.get("PYTHONPATH")) if p))
+    proc = subprocess.Popen(cmd, cwd=REPO, env=env, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        out, _ = proc.communicate()
+        fail(f"{' '.join(cmd[:8])} ran past {timeout} s:\n{out[-4000:]}")
+    check(proc.returncode == 0,
+          f"{' '.join(cmd[:8])} exited {proc.returncode}:\n{out[-6000:]}")
+    return out
+
+
+def step_one(out_dir: str) -> dict:
+    with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+        return json.loads(f.readline())
+
+
+def parallel_path(ckpt_root, training) -> tuple[dict, dict]:
+    """(1) `torchrun --nproc_per_node 1 -m detectax_torch.cli.train_fcos`
+    (NCCL) against the same CLI in this process, step 1 to `NCCL_RTOL`;
+    (2) under torchrun, the FCOS step with a group of one (NCCL) against
+    the step without one in the same process, fp32 and bf16, with the
+    collectives a step and the time of an all-reduce; (3) two gloo ranks
+    sharing the card (NCCL refuses two ranks on one card) against
+    `train_path`'s one process on the same global batches, `PATHS_RTOL`,
+    after both ranks built the kernels at once from an empty build; (4)
+    `cli.evaluate --data_parallel` at batch 8 on the two ranks against
+    `cli.evaluate` here at a rank's batch, 4, detection for detection,
+    exactly: each image's forward then has the shape it has on a rank
+    (cuDNN picks its algorithm by the shape, and with random weights a
+    last-bit change of a score reorders near-ties in NMS). Logs each part
+    as it ends; returns the launches of the counted runs and the
+    numbers."""
+    from detectax_torch.cli import evaluate as cli_evaluate
+    from detectax_torch.cli import train_fcos
+    from detectax_torch.tools import two_process_cpu_test as ranks
+
+    out: dict = {}
+    counts: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (1) the trainer CLI under torchrun, then without a group
+        argv = ["--backbone", BACKBONE, "--canvas", str(CANVAS),
+                "--batch_size", str(TRAIN_BATCH), "--max_steps",
+                str(DP_STEPS), "--display_step", "1", "--step_save",
+                str(DP_STEPS), "--synthetic_n", "64"]
+        runs = {}
+        t0 = time.perf_counter()
+        run_process([*TORCHRUN, "-m", "detectax_torch.cli.train_fcos", *argv,
+                     "--ckpt_dir", os.path.join(tmp, "ckpt_nccl"),
+                     "--out_dir", os.path.join(tmp, "out_nccl")], 300)
+        runs["torchrun_s"] = time.perf_counter() - t0
+        summary = train_fcos.main(argv + [
+            "--ckpt_dir", os.path.join(tmp, "ckpt_alone"),
+            "--out_dir", os.path.join(tmp, "out_alone")])
+        runs["alone_images_per_s"] = summary["images_per_sec"]
+        nccl, alone = (step_one(os.path.join(tmp, d))
+                       for d in ("out_nccl", "out_alone"))
+        for key in ("total", "cls", "grad_norm"):
+            runs[f"{key}_rel"] = abs(nccl[key] - alone[key]) / abs(alone[key])
+            check(close(nccl[key], alone[key], NCCL_RTOL),
+                  f"torchrun cli.train_fcos step 1 {key} {nccl[key]}, "
+                  f"without a group {alone[key]} (rtol {NCCL_RTOL})")
+        out["cli_torchrun_nproc_1"] = runs
+        log("parallel_cli " + json.dumps(runs))
+
+        batches = os.path.join(tmp, "batches.npz")
+        np.savez(batches, **{f"{k}_{i}": v for i in range(DP_STEPS)
+                             for k, v in train_batch(SEED + 10 + i).items()})
+        train = {"kind": "train", "batches": batches, "lr": 5e-4,
+                 "grad_clip": 1.0, "model": {
+                     "backbone": BACKBONE, "num_classes": NUM_CLASSES,
+                     "canvas": CANVAS, "seed": SEED}}
+
+        # (2) the step with a group of one (NCCL) and without, one process
+        work = os.path.join(tmp, "nccl")
+        ranks.write_jobs([
+            dict(train, name="fp32", alone=True, time_all_reduce=True),
+            dict(train, name="bf16", alone=True,
+                 model=dict(train["model"], dtype="bfloat16"))], work)
+        t0 = time.perf_counter()
+        run_process([*TORCHRUN, "-m", "detectax_torch.tools."
+                     "two_process_cpu_test", work], 400)
+        with open(os.path.join(work, "rank0.json")) as f:
+            res = json.load(f)
+        check(res["world_size"] == 1, f"torchrun gave {res['world_size']}")
+        nccl = {"phase_s": time.perf_counter() - t0}
+        for name, job in res["jobs"].items():
+            check(job["backend"] == "nccl", f"{name}: {job['backend']}")
+            got, want = job["metrics"][0], job["alone"]["metrics"][0]
+            for key in ("total", "cls", "grad_norm"):
+                check(close(got[key], want[key], NCCL_RTOL),
+                      f"NCCL {name} step 1 {key} {got[key]}, without a "
+                      f"group {want[key]} (rtol {NCCL_RTOL})")
+            check(job["launches"].get("focal_fwd") == DP_STEPS
+                  and job["launches"].get("focal_bwd") == DP_STEPS,
+                  f"NCCL {name} launched {job['launches']}")
+            counts[f"nccl_{name}"] = job["launches"]
+            nccl[name] = {
+                "step_ms": job["step_ms"],
+                "alone_step_ms": job["alone"]["step_ms"],
+                "collectives_per_step": job["collectives_per_step"],
+                "metrics_step_1": got}
+            nccl[name].update({k: job[k] for k in ("allreduce_ms",)
+                               if k in job})
+        fp32 = nccl["fp32"]["metrics_step_1"]
+        for key in ("total", "cls", "grad_norm"):
+            check(close(fp32[key], training["metrics_step_1"][key],
+                        PATHS_RTOL),
+                  f"NCCL step 1 {key} {fp32[key]}, train_path's "
+                  f"{training['metrics_step_1'][key]}")
+        out["torchrun_nproc_1_nccl"] = nccl
+        log("parallel_nccl " + json.dumps(nccl))
+
+        # (3) + (4): two gloo ranks on the card, which build the kernels
+        # at once from an empty build
+        lib = os.path.join(kcommon.BUILD_DIR, kcommon.LIB_NAME)
+        if os.path.exists(lib):
+            os.remove(lib)  # this process keeps the copy it loaded
+        torch.cuda.empty_cache()
+        work = os.path.join(tmp, "gloo")
+        evaluate = ["--family", "fcos", "--dataset", "synthetic",
+                    "--synthetic_n", "16", "--backbone", BACKBONE,
+                    "--canvas", str(CANVAS), "--cls_thresh", "0.0",
+                    "--ckpt_dir", os.path.join(ckpt_root, "fcos")]
+        t0 = time.perf_counter()
+        res = ranks.launch(
+            [dict(train, name="train", time_all_reduce=True),
+             {"kind": "evaluate", "name": "evaluate",
+              "argv": evaluate + ["--batch_size", "8", "--device",
+                                  "cuda:0", "--data_parallel"]}],
+            2, work, device="cuda:0", backend="gloo", timeout=600)
+        gloo = {"phase_s": time.perf_counter() - t0,
+                "built_s_by_rank": [r["built_s"] for r in res]}
+        check(all(r["built_s"] is not None for r in res)
+              or os.path.exists(lib), "the ranks left no library built")
+        train_res = [r["jobs"]["train"] for r in res]
+        for rank, job in enumerate(train_res):
+            check(job["backend"] == "gloo" and job["device"] == "cuda:0",
+                  f"rank {rank}: {job['backend']} on {job['device']}")
+            check(job["launches"].get("focal_fwd") == DP_STEPS
+                  and job["launches"].get("focal_bwd") == DP_STEPS,
+                  f"gloo rank {rank} launched {job['launches']}, expected "
+                  f"{DP_STEPS} and {DP_STEPS}")
+            check(job["metrics"] == train_res[0]["metrics"],
+                  f"rank {rank}'s metrics differ from rank 0's")
+        got = train_res[0]["metrics"]
+        rel = {}
+        for key in ("total", "cls", "grad_norm"):
+            a, b = got[0][key], training["metrics_step_1"][key]
+            rel[key] = abs(a - b) / abs(b)
+            check(close(a, b, PATHS_RTOL),
+                  f"two gloo ranks step 1 {key} {a}, one process {b} "
+                  f"(tolerance rtol {PATHS_RTOL})")
+        last = {k: abs(got[-1][k] - training["metrics_last"][k])
+                / abs(training["metrics_last"][k])
+                for k in ("total", "cls", "grad_norm")}
+        counts["gloo_train"] = [j["launches"] for j in train_res]
+        gloo["train"] = {
+            "global_batch": TRAIN_BATCH, "rows_a_rank": TRAIN_BATCH // 2,
+            "step_ms_by_rank": [j["step_ms"] for j in train_res],
+            "one_process_step_ms": training["step_ms"],
+            "collectives_per_step": train_res[0]["collectives_per_step"],
+            "allreduce_ms": train_res[0]["allreduce_ms"],
+            "step_1_rel_to_one_process": rel,
+            f"step_{DP_STEPS}_rel_to_one_process": last}
+        log("parallel_gloo_train " + json.dumps(gloo))
+
+        eval_res = [r["jobs"]["evaluate"] for r in res]
+        t0 = time.perf_counter()
+        with ranks.record_detections() as seen:
+            want = cli_evaluate.main(evaluate + ["--batch_size", "4",
+                                                 "--device", str(DEV)])
+        alone_s = time.perf_counter() - t0
+        check(eval_res[0]["summary"] == json.loads(json.dumps(want))
+              and eval_res[1]["summary"] is None,
+              f"--data_parallel summary {eval_res[0]['summary']}, one "
+              f"process {want}")
+        dets = np.load(os.path.join(work, "evaluate_dets.npz"))
+        check(len(seen) == 16 and eval_res[0]["images"] == 16,
+              f"evaluated {len(seen)} / {eval_res[0]['images']} images")
+        for i, d in enumerate(seen):
+            for k, v in d.items():
+                check(np.array_equal(dets[f"{k}_{i}"], v),
+                      f"--data_parallel image {i}: {k} differ from one "
+                      "process's")
+        counts["gloo_evaluate"] = [j["launches"] for j in eval_res]
+        for rank, c in enumerate(counts["gloo_evaluate"]):
+            check(c.get("dense_nms", 0) == 2,
+                  f"evaluate rank {rank} launched {c}: expected dense_nms "
+                  "once for each of its 2 batches")
+        gloo["evaluate"] = {
+            "images": 16, "batch": 8, "data_parallel_s_by_rank": [
+                j["wall_s"] for j in eval_res],
+            "one_process_batch": 4, "one_process_s": alone_s,
+            "detections": sum(len(d["scores"]) for d in seen),
+            "detections_equal": True}
+        out["gloo_two_ranks_one_card"] = gloo
+        log("parallel_gloo_evaluate " + json.dumps(gloo["evaluate"]))
+    return counts, out
+
+
+# --------------------------------------------------------------------------
 
 def main() -> None:
     if not torch.cuda.is_available():
@@ -3307,6 +3543,14 @@ def main() -> None:
     log("exported_serving " + json.dumps({
         "card": card, "buckets": BUCKETS, "requests": REQUESTS,
         "dtype": "float32", "phase_s": export_s, "bundles": exported}))
+    torch.cuda.empty_cache()
+
+    t_dp = time.perf_counter()
+    dp_counts, parallel = parallel_path(ckpts.name, training)
+    log("parallel " + json.dumps({
+        "card": card, "model": f"FCOS {BACKBONE} FPN", "canvas": CANVAS,
+        "classes": NUM_CLASSES, "global_batch": TRAIN_BATCH,
+        "phase_s": time.perf_counter() - t_dp, **parallel}))
     ckpts.cleanup()
 
     by_path = {
@@ -3332,7 +3576,9 @@ def main() -> None:
                       "retinanet_exported_serving":
                           ex_counts["retinanet"]["dense_nms"],
                       "stacked_hourglass_exported_serving":
-                          ex_counts["stacked_hourglass"]["dense_nms"]},
+                          ex_counts["stacked_hourglass"]["dense_nms"],
+                      "fcos_evaluate_data_parallel_two_ranks": sum(
+                          c["dense_nms"] for c in dp_counts["gloo_evaluate"])},
         "focal": {"fcos_training": train_counts["focal_fwd"],
                   "centernet_training": cn_train_counts["focal_fwd"],
                   "centernet_s8_training": s8_train_counts["focal_fwd"],
@@ -3350,7 +3596,13 @@ def main() -> None:
                   "stacked_hourglass_cli_training":
                       hg_cli_counts["stacked_multi_scale"]["focal_fwd"],
                   "stacked_hourglass_detbench_v2_bf16_training":
-                      hg_db_train_counts["focal_fwd"]},
+                      hg_db_train_counts["focal_fwd"],
+                  "fcos_training_nccl_one_rank":
+                      dp_counts["nccl_fp32"]["focal_fwd"],
+                  "fcos_bf16_training_nccl_one_rank":
+                      dp_counts["nccl_bf16"]["focal_fwd"],
+                  "fcos_training_gloo_two_ranks": sum(
+                      c["focal_fwd"] for c in dp_counts["gloo_train"])},
         "peak": {"centernet_serving": cn_counts["peak"],
                  "centernet_exported_serving":
                      ex_counts["centernet_heatmap"]["peak"]},
@@ -3372,7 +3624,11 @@ def main() -> None:
                                 + hg_bf16_counts["focal_bwd"]
                                 + hg_cli_counts["stacked_multi_scale"][
                                     "focal_bwd"]
-                                + hg_db_train_counts["focal_bwd"])
+                                + hg_db_train_counts["focal_bwd"]
+                                + dp_counts["nccl_fp32"]["focal_bwd"]
+                                + dp_counts["nccl_bf16"]["focal_bwd"]
+                                + sum(c["focal_bwd"]
+                                      for c in dp_counts["gloo_train"]))
     # the five levels: one grouped call (what training runs), and beside it
     # the five single calls of the per-level rows
     levels, grouped = focal[:len(FOCAL_LEVELS)], groups[0]

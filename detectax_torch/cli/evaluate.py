@@ -17,6 +17,15 @@ path, as the JAX package takes it on the CPU.
 
     python -m detectax_torch.cli.evaluate --family fcos \\
         --dataset detbench --ckpt_dir ckpt --coco_metrics [--device cpu]
+
+``--data_parallel`` under `torchrun` shards each batch over the ranks
+(`parallel.mesh.make_sharded_eval_fn`): every rank reads the same
+unshuffled loader, runs its rows and all-gathers the detections; rank 0
+feeds the evaluator, prints and writes ``--out_json``. ``--batch_size``
+is the global batch and must divide by the world size.
+
+    torchrun --nproc_per_node 2 -m detectax_torch.cli.evaluate \\
+        --family fcos --dataset detbench --ckpt_dir ckpt --data_parallel
 """
 from __future__ import annotations
 
@@ -42,6 +51,7 @@ from detectax_torch.models import (
     StackedHourglass,
 )
 from detectax_torch.ops import anchors as anchor_lib
+from detectax_torch.parallel import mesh
 from detectax_torch.runtime import resolve_device, set_tf32
 from detectax_torch.tools.from_flax import load_flax, load_weights
 from detectax_torch.train.driver import restore_for_inference
@@ -175,8 +185,10 @@ def main(argv=None):
                    help="evaluate the EMA-averaged weights (requires "
                         "training with --ema_decay)")
     p.add_argument("--data_parallel", action="store_true",
-                   help="shard the eval batch over all devices (not "
-                        "ported yet: ROADMAP.md queue 1, Parallelism)")
+                   help="under torchrun: shard each batch over the ranks "
+                        "(parallel.mesh.make_sharded_eval_fn), one process "
+                        "a card; batch_size is the global batch and must "
+                        "divide by the world size")
     p.add_argument("--plain_kernels", action="store_true",
                    help="run every kernel's plain version in the kernel "
                         "path's structure (the reference the kernels are "
@@ -186,11 +198,23 @@ def main(argv=None):
     p.add_argument("--out_json", default=None)
     args = p.parse_args(argv)
 
+    dp = None
     if args.data_parallel:
-        raise NotImplementedError(
-            "--data_parallel is not ported yet (ROADMAP.md queue 1, "
-            "Parallelism)")
-    device = resolve_device(args.device)
+        dp = mesh.maybe_initialize_distributed(args.device)
+        if dp is None:
+            print("--data_parallel: no process group (launch under "
+                  "torchrun); evaluating in this process alone")
+    try:
+        return _evaluate(args, dp)
+    finally:
+        mesh.shutdown(dp)
+
+
+def _evaluate(args, dp):
+    # refused before any collective, so that every rank raises
+    mesh.local_rows(args.batch_size, dp)
+    device = resolve_device(args.device) if dp is None else dp.device
+    lead = dp is None or dp.lead
     set_tf32(False)
     kernels = "plain" if args.plain_kernels else None
 
@@ -240,11 +264,14 @@ def main(argv=None):
                 kernels=kernels,
             )
 
+    forward_decode_nms = mesh.make_sharded_eval_fn(forward_decode_nms, dp)
     for batch in loader:
         images = torch.from_numpy(
             np.ascontiguousarray(batch["images"], np.float32)).to(device)
         dets = {k: v.cpu().numpy()
                 for k, v in forward_decode_nms(images).items()}
+        if not lead:
+            continue
         det_boxes = dets["boxes"]
         det_scores = dets["scores"]
         det_classes = dets["classes"]
@@ -272,6 +299,8 @@ def main(argv=None):
                 gt_corners, batch["labels"][i][gt_v],
             )
 
+    if not lead:
+        return None
     summary = evaluator.summarize()
     print(json.dumps(summary, indent=2))
     if args.out_json:

@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from detectax_torch.ops.pool import pad_same
+from detectax_torch.parallel.mesh import all_reduce_sum, batch_stats_group
 
 # Focal-prior bias log(0.01/0.99) used by every classification head.
 FOCAL_BIAS = math.log(0.01 / 0.99)
@@ -53,6 +54,37 @@ def bn_stat_subset() -> int:
         return 0
 
 
+def _global_moments(x: torch.Tensor, sub: int, red: torch.dtype,
+                    dp) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mean and biased variance a channel over a data-parallel group's
+    global batch, every rank holding ``x.shape[0]`` rows of it in rank
+    order. Under `bn_stat_subset` ``k`` the rows that count are the first
+    ``n // k`` of the global ``n`` (JAX's rule on the sharded batch); a
+    rank that holds none of them adds zeros.
+
+    Each rank weights its moments (mean of x and of x², reduced in
+    ``red``) by its share of the counted rows, and one float32
+    `all_reduce_sum` adds them, so at world size 1 the statistics are the
+    ones computed without a group, bit for bit."""
+    n_local = x.shape[0]
+    n = n_local * dp.world_size
+    rows = n // sub if sub > 1 and n >= sub else n
+    take = min(max(rows - dp.rank * n_local, 0), n_local)
+    xr = x[:take].to(red)
+    if take:
+        local = torch.stack([xr.mean(dim=(0, 2, 3)),
+                             torch.square(xr).mean(dim=(0, 2, 3))])
+        local = local.to(torch.float32) * (take / rows)
+    else:
+        # zeros that stay in the graph: the backward's all-reduce must run
+        # on every rank, and autograd skips a node no parameter lies under
+        local = torch.stack([xr.sum(dim=(0, 2, 3)),
+                             torch.square(xr).sum(dim=(0, 2, 3))]
+                            ).to(torch.float32)
+    mean, mean2 = all_reduce_sum(local, dp).to(red).unbind(0)
+    return mean, torch.clamp_min(mean2 - torch.square(mean), 0.0)
+
+
 class BatchNorm(nn.Module):
     """BatchNorm over the channel dim of an NCHW tensor, with the Flax
     module's parameters (`weight`/`bias` = scale/bias, `running_mean`,
@@ -67,6 +99,9 @@ class BatchNorm(nn.Module):
     ``F.batch_norm(training=True)`` stores the unbiased variance and means
     by momentum the weight of the new value, so it is not used here. The
     buffers are updated in place, outside autograd, and stay float32.
+    While `parallel.mesh.batch_stats_over` holds a data-parallel group the
+    statistics cover the group's global batch (`_global_moments`), so the
+    running averages move alike on every rank.
 
     ``dtype`` is the compute dtype: as Flax's ``promote_dtype`` does, the
     input, mean, variance, scale and bias are all cast to it and the
@@ -91,14 +126,18 @@ class BatchNorm(nn.Module):
         dtype = self.compute_dtype
         if train:
             sub = bn_stat_subset()
-            xs = x
-            if sub > 1 and x.shape[0] >= sub:
-                xs = x[: x.shape[0] // sub]
             red = torch.float32 if self.force_float32_reductions else dtype
-            xr = xs.to(red)
-            mean = xr.mean(dim=(0, 2, 3))
-            mean2 = torch.square(xr).mean(dim=(0, 2, 3))
-            var = torch.clamp_min(mean2 - torch.square(mean), 0.0)
+            dp = batch_stats_group()
+            if dp is not None:
+                mean, var = _global_moments(x, sub, red, dp)
+            else:
+                xs = x
+                if sub > 1 and x.shape[0] >= sub:
+                    xs = x[: x.shape[0] // sub]
+                xr = xs.to(red)
+                mean = xr.mean(dim=(0, 2, 3))
+                mean2 = torch.square(xr).mean(dim=(0, 2, 3))
+                var = torch.clamp_min(mean2 - torch.square(mean), 0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(m).add_(

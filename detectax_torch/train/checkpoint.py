@@ -7,7 +7,9 @@ cadence; `restore_latest` resumes so step counting continues. A file holds
 plain tensors and numbers only and is read back with
 ``torch.load(weights_only=True)``. It is written under a temporary name
 and renamed, so a reader never finds half a file. Saves are synchronous;
-`wait` is kept for the interface.
+`wait` is kept for the interface. In a data-parallel run rank 0 alone
+saves (`train.driver.fit`), and the file is the one a single-process run
+writes: it holds nothing of the group and restores without one.
 """
 from __future__ import annotations
 

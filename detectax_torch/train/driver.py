@@ -1,10 +1,18 @@
 """The training run shared by the CLI trainers (`fit`).
 
-Port of `detectax/train/driver.py` for one device (no mesh): host loader →
-train step → console/CSV metrics → checkpoint cadence. Resume restores both
-the checkpoint and the metrics history. Batches are copied to the device
-one step ahead on a side stream from pinned host memory, so the copy
-overlaps the previous step's compute.
+Port of `detectax/train/driver.py`: host loader → train step →
+console/CSV metrics → checkpoint cadence. Resume restores both the
+checkpoint and the metrics history. Batches are copied to the device one
+step ahead on a side stream from pinned host memory, so the copy overlaps
+the previous step's compute.
+
+Under `torchrun` (``torchrun --nproc_per_node N -m
+detectax_torch.cli.train_fcos ...``) the run is data-parallel, one process
+a card (`parallel.mesh`): ``batch_size`` stays the **global** batch, as
+for the JAX package's one process over a mesh, and each rank's `Loader`
+takes ``batch_size / N`` rows of its own share of the data. Rank 0 alone
+prints, logs, profiles, calls the eval hook and writes the checkpoint,
+which is the file a single-process run writes.
 """
 from __future__ import annotations
 
@@ -16,6 +24,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from detectax_torch.parallel import mesh
 from detectax_torch.runtime import resolve_device, set_tf32
 from detectax_torch.tools.from_flax import (
     BACKBONE_FLAX_NAMES,
@@ -92,12 +101,16 @@ class TrainConfig:
     device: str | None = None
 
 
-def build_loader(cfg: TrainConfig, dataset):
+def build_loader(cfg: TrainConfig, dataset,
+                 dp: mesh.DataParallel | None = None):
+    """The run's loader; under data parallelism this rank's: ``batch_size
+    / world`` rows a step of its share of the data (``num_hosts=world``,
+    ``host_id=rank``)."""
     from detectax_torch.data.pipeline import Loader
 
     return Loader(
         dataset,
-        batch_size=cfg.batch_size,
+        batch_size=mesh.local_rows(cfg.batch_size, dp),
         canvas=cfg.canvas,
         max_boxes=cfg.max_boxes,
         mode=cfg.resize_mode,
@@ -108,6 +121,8 @@ def build_loader(cfg: TrainConfig, dataset):
         normalize=cfg.normalize,
         emit_uint8=cfg.device_normalize,
         seed=cfg.seed,
+        num_hosts=1 if dp is None else dp.world_size,
+        host_id=0 if dp is None else dp.rank,
         steps=cfg.max_steps,
     )
 
@@ -193,8 +208,24 @@ def fit(
     ``eval_hook(step=, state=, forward=, batch=, out_dir=)`` is called on
     display steps with the host batch (pixels normalized) and ``forward``,
     the model's eval-mode forward without autograd
-    (`train.loop.make_eval_forward`)."""
-    device = resolve_device(cfg.device)
+    (`train.loop.make_eval_forward`).
+
+    Starts with `parallel.mesh.maybe_initialize_distributed`: under
+    torchrun's environment (or in a group already initialized) the run is
+    data-parallel over the group, each rank on ``cfg.device`` or
+    ``cuda:LOCAL_RANK``; a group created here is destroyed at the end."""
+    dp = mesh.maybe_initialize_distributed(cfg.device)
+    try:
+        return _fit(cfg, model, dataset, assign_fn, loss_fn, eval_hook, dp)
+    finally:
+        mesh.shutdown(dp)
+
+
+def _fit(cfg, model, dataset, assign_fn, loss_fn, eval_hook, dp) -> dict:
+    device = resolve_device(cfg.device) if dp is None else dp.device
+    lead = dp is None or dp.lead
+    # refused before any collective, so that every rank raises
+    mesh.local_rows(cfg.batch_size, dp)
     set_tf32(False)
     os.makedirs(cfg.out_dir, exist_ok=True)
     schedule = make_schedule(cfg.schedule, **cfg.schedule_kwargs)
@@ -216,7 +247,7 @@ def fit(
         model, assign_fn, loss_fn, optimizer, microbatch=cfg.microbatch,
         normalize=cfg.normalize if cfg.device_normalize else None,
         loss_norm=cfg.loss_norm,
-        ema_decay=cfg.ema_decay or None,
+        ema_decay=cfg.ema_decay or None, data_parallel=dp,
     )
 
     ckpt = CheckpointManager(cfg.ckpt_dir, max_to_keep=cfg.max_to_keep)
@@ -232,8 +263,10 @@ def fit(
             print(f"resumed from checkpoint at step {start_step}")
         else:
             print("no checkpoint found; starting fresh")
+    # the ranks start from rank 0's state (init, backbone and resume alike)
+    state = mesh.replicate_state(state, dp)
 
-    loader = build_loader(cfg, dataset)
+    loader = build_loader(cfg, dataset, dp)
     meter = ThroughputMeter()
     meter.start()
     eval_fwd = make_eval_forward(model) if eval_hook else None
@@ -247,7 +280,8 @@ def fit(
             for device_batch, batch in _device_prefetch(loader, device):
                 if step >= cfg.max_steps:
                     break
-                if cfg.profile_steps and step == cfg.profile_steps[0]:
+                if (lead and cfg.profile_steps
+                        and step == cfg.profile_steps[0]):
                     profiler = _start_profiler(device)
                 state, metrics = step_fn(state, device_batch)
                 meter.update(cfg.batch_size)
@@ -259,13 +293,15 @@ def fit(
                     profiler = None
 
                 if step % cfg.display_step == 0 or step == cfg.max_steps:
+                    # the metrics are the global step's on every rank
                     metrics_host = {k: float(v) for k, v in metrics.items()}
                     metrics_host["images_per_sec"] = meter.reset()
-                    print(format_console(step, float(schedule(step)),
-                                         metrics_host))
-                    logger.log(step, metrics_host)
                     last_metrics = metrics_host
-                    if eval_hook is not None:
+                    if lead:
+                        print(format_console(step, float(schedule(step)),
+                                             metrics_host))
+                        logger.log(step, metrics_host)
+                    if lead and eval_hook is not None:
                         hook_batch = batch
                         if cfg.device_normalize:
                             from detectax_torch.data.pipeline import (
@@ -280,14 +316,17 @@ def fit(
                                   batch=hook_batch, out_dir=cfg.out_dir)
 
                 if step % cfg.step_save == 0 or step == cfg.max_steps:
-                    ckpt.save(step, state)
-                    logger.flush_csv()
+                    if lead:
+                        ckpt.save(step, state)
+                        logger.flush_csv()
+                    mesh.barrier(dp)
         finally:
             if profiler is not None:
                 _stop_profiler(profiler, cfg.out_dir)
 
     ckpt.wait()
-    logger.flush_csv()
+    if lead:
+        logger.flush_csv()
     elapsed = time.time() - t_start
     summary = {
         "final_step": step,
@@ -296,10 +335,9 @@ def fit(
         / max(elapsed, 1e-9),
         **last_metrics,
     }
-    print(
-        f"done: {summary['final_step']} steps in {elapsed / 60:.1f} min "
-        f"({summary['images_per_sec']:.1f} img/s)"
-    )
+    if lead:
+        print(f"done: {summary['final_step']} steps in {elapsed / 60:.1f} "
+              f"min ({summary['images_per_sec']:.1f} img/s)")
     return summary
 
 

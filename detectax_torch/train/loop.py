@@ -17,6 +17,12 @@ state instead.
 `microbatch` keeps the memory-bounded sub-batch semantics: the batch is
 cut into chunks, gradients are accumulated over them, and BatchNorm
 running statistics advance chunk by chunk in order.
+
+`data_parallel` runs the step on one rank of a group
+(`detectax_torch.parallel.mesh`) that holds its rows of a global batch: it
+gives the single-process step on the global batch, as the JAX package's
+step jitted over a mesh does (BatchNorm's statistics, the loss
+denominators and the gradient taken over the global batch).
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ import torch
 from torch import nn
 
 from detectax_torch.models.layers import init_parameters
+from detectax_torch.parallel import mesh
 from detectax_torch.train.schedules import Optimizer, global_norm
 
 
@@ -108,6 +115,7 @@ def make_train_step(
     normalize: str | None = None,
     loss_norm: str = "batch",
     ema_decay: float | None = None,
+    data_parallel: mesh.DataParallel | None = None,
 ):
     """Build the train step.
 
@@ -126,6 +134,18 @@ def make_train_step(
         accumulated unnormalized and divided once by the batch's global
         positive count, so gradients match the unsplit step however
         unevenly positives fall across chunks.
+      data_parallel: this rank's group, or None. The batch given to the
+        step is then this rank's rows of the global batch (every rank the
+        same number): BatchNorm takes its statistics over the global batch,
+        the losses are divided by the global batch size or the all-reduced
+        ``num_pos``, and the gradients (one flat buffer) and the logged
+        losses are all-reduced as sums, so every rank returns the metrics
+        and makes the update of the single-process step on the global
+        batch. ``microbatch`` counts global rows and must divide by the
+        world size: global chunk ``j`` is every rank's ``j``-th local chunk
+        of ``microbatch / world`` rows (the JAX package cuts the global
+        batch into contiguous chunks instead, which would leave most ranks
+        idle on each).
 
     Returns ``step(state, batch) -> (state, metrics)`` where batch is a
     dict of ``images [B,H,W,3]``, ``boxes [B,N,4]``, ``labels [B,N]``,
@@ -135,15 +155,25 @@ def make_train_step(
     """
     if loss_norm not in ("batch", "pos"):
         raise ValueError(f"unknown loss_norm {loss_norm!r}")
+    dp = data_parallel
+    world = 1 if dp is None else dp.world_size
+    if microbatch is not None and microbatch % world:
+        raise ValueError(f"microbatch {microbatch} must divide by the "
+                         f"world size {world}")
     assign_takes_hw = len(inspect.signature(assign_fn).parameters) >= 4
     params = list(model.parameters())
+
+    def global_sum(t):
+        # the sum over the group, outside autograd (without one: t)
+        return t if dp is None else mesh.all_reduce_scalars({"t": t}, dp)["t"]
 
     def forward_grads(images, y_true, batch_size, raw):
         preds = model(images, train=True)
         losses = dict(loss_fn(y_true, preds))
         if not raw:
             if loss_norm == "pos":
-                denom = torch.clamp_min(losses["num_pos"], 1.0)
+                denom = torch.clamp_min(
+                    global_sum(losses["num_pos"].detach()), 1.0)
             else:
                 denom = batch_size
             num_pos = losses.pop("num_pos", None)
@@ -165,7 +195,7 @@ def make_train_step(
         images = _to_device(batch["images"], device)
         if normalize is not None:
             images = normalize_images(images, normalize)
-        bsz = images.shape[0]
+        bsz = images.shape[0] * world
         gt = [_to_device(batch[k], device)
               for k in ("boxes", "labels", "valid")]
         with torch.no_grad():
@@ -175,18 +205,22 @@ def make_train_step(
                 y_true = assign_fn(*gt)
 
         if microbatch is None or microbatch >= bsz:
-            grads, losses = forward_grads(images, y_true, float(bsz), False)
+            with mesh.batch_stats_over(dp):
+                grads, losses = forward_grads(images, y_true, float(bsz),
+                                              False)
         else:
             if bsz % microbatch:
                 raise ValueError("batch must divide by microbatch")
             raw = loss_norm == "pos"
             grads, losses = None, None
-            for lo in range(0, bsz, microbatch):
-                sl = slice(lo, lo + microbatch)
+            rows = microbatch // world   # this rank's rows of a chunk
+            for lo in range(0, images.shape[0], rows):
+                sl = slice(lo, lo + rows)
                 # one target map (a tensor) or one a level (a sequence)
                 chunk = (y_true[sl] if isinstance(y_true, torch.Tensor)
                          else tuple(t[sl] for t in y_true))
-                g, l = forward_grads(images[sl], chunk, float(bsz), raw)
+                with mesh.batch_stats_over(dp):
+                    g, l = forward_grads(images[sl], chunk, float(bsz), raw)
                 grads = g if grads is None else [
                     a + b for a, b in zip(grads, g)]
                 losses = l if losses is None else {
@@ -195,10 +229,15 @@ def make_train_step(
                 # chunks accumulated *unnormalized*; divide once by the
                 # batch's global positive count
                 num_pos = losses.pop("num_pos")
-                inv = 1.0 / torch.clamp_min(num_pos, 1.0)
+                inv = 1.0 / torch.clamp_min(global_sum(num_pos), 1.0)
                 grads = [g * inv for g in grads]
                 losses = {k: v * inv for k, v in losses.items()}
                 losses["num_pos"] = num_pos
+        if dp is not None:
+            # each rank's losses are its rows' sums over the global
+            # denominator: their sums are the global step's
+            grads = mesh.all_reduce_flat(grads, dp)
+            losses = mesh.all_reduce_scalars(losses, dp)
 
         metrics = dict(losses)
         metrics["grad_norm"] = global_norm(grads)

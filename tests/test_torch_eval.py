@@ -270,10 +270,23 @@ def test_evaluate_cli_small_pool_and_checkpoint(tmp_path):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--data_parallel"], "Parallelism")])
-def test_evaluate_cli_refuses_what_waits(argv, match):
-    with pytest.raises(NotImplementedError, match=match):
-        t_evaluate.main(COMMON + ["--device", "cpu", *argv])
+    pytest.param(["--data_parallel"], "no process group",
+                 id="argv0-Parallelism")])
+def test_evaluate_cli_refuses_what_waits(argv, match, tmp_path, capsys):
+    """Nothing waits any more: `--data_parallel` is ported
+    (`tests/test_torch_parallel.py` runs it on two ranks). Outside
+    torchrun it says that it has no process group and evaluates in the
+    process alone, as without the flag."""
+    t_train_fcos.main(["--device", "cpu", "--backbone", "tiny", "--canvas",
+                       "64", "--batch_size", "2", "--synthetic_n", "4",
+                       "--max_steps", "1", "--ckpt_dir", str(tmp_path / "c"),
+                       "--out_dir", str(tmp_path / "out")])
+    base = COMMON + ["--device", "cpu", "--ckpt_dir", str(tmp_path / "c"),
+                     "--cls_thresh", "0.0"]
+    want = t_evaluate.main(base)
+    capsys.readouterr()
+    assert t_evaluate.main(base + argv) == want
+    assert match in capsys.readouterr().out
     assert set(t_evaluate.FAMILIES) == set(j_evaluate.FAMILIES)
     assert t_evaluate.TRAIN_GEOMETRY == j_evaluate.TRAIN_GEOMETRY
 

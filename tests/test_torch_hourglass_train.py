@@ -303,7 +303,13 @@ def test_train_cli_then_evaluate_equals_the_jax_cli(tmp_path, monkeypatch,
         assert got[k] == pytest.approx(w, abs=1e-12), k
 
 
-def test_evaluate_cli_still_refuses_data_parallel_for_the_hourglass():
-    with pytest.raises(NotImplementedError, match="Parallelism"):
+def test_evaluate_cli_still_refuses_data_parallel_for_the_hourglass(
+        tmp_path, capsys):
+    """`--data_parallel` is ported and refuses no family any more: outside
+    torchrun the hourglass evaluation goes on in the process alone, on to
+    its checkpoint (none here)."""
+    with pytest.raises(FileNotFoundError, match="no checkpoint"):
         t_evaluate.main(["--family", "stacked_hourglass", "--device", "cpu",
+                         "--ckpt_dir", str(tmp_path / "none"),
                          "--data_parallel"])
+    assert "no process group" in capsys.readouterr().out

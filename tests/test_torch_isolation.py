@@ -182,7 +182,8 @@ def test_every_port_module_imports_without_a_build():
                 "eval.detection_metrics", "cli.evaluate", "cli._eval_hooks",
                 "cli.train_fcos_center_voc", "cli.train_fcos_center_v1_voc",
                 "ops.anchors", "models.retinanet", "cli.train_retinanet_coco",
-                "cli.infer_retinanet", "kernels.ops", "cli.export_model"):
+                "cli.infer_retinanet", "kernels.ops", "cli.export_model",
+                "parallel", "parallel.mesh", "tools.two_process_cpu_test"):
         assert f"detectax_torch.{new}" in mods
     code = (
         "import importlib, sys\n"
