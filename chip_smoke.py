@@ -157,7 +157,23 @@ order:
    checkpoint against `cli.evaluate` in this process at a rank's batch
    (4, the shape each image's forward has on a rank: cuDNN picks its
    algorithm by the shape), the same detections exactly;
-14. prints one JSON line ``{"kernels": [...]}`` and, last, the ``ok`` line.
+14. ingestion, from raw files to a trained checkpoint: writes 64 seeded
+   JPEGs at VOC's sizes (500 x 375 and 375 x 500, quality 90) with one
+   VOC XML annotation each (1-6 objects over the 20 classes), converts
+   them with `detectax_torch.cli.convert_voc` (the index's samples and
+   objects against what was written), builds the native JPEG loader
+   (``g++`` and libjpeg; where libjpeg alone is missing it says so and the
+   rest runs on PIL), runs the `Loader` at the main config (batch 16,
+   384 px, 8 batches) natively and on PIL (boxes equal, mean pixel
+   difference under 0.2, each one's images/s), trains 4 steps of
+   `cli.train_fcos --index` at 384 px, batch 16 (focal 4 + 4 launches),
+   evaluates the 64 images from its checkpoint through `cli.evaluate
+   --index` on the kernels and on the plain versions (every batch's
+   detections equal), and ports a seeded torchvision-layout ResNeXt-50
+   with `tools.port_tf_weights.port_torch_resnext` through the ``.npz``
+   into the port's ``resnext50:torch`` trunk on the card (C3-C5 to 1e-4 of
+   each tap's largest magnitude);
+15. prints one JSON line ``{"kernels": [...]}`` and, last, the ``ok`` line.
 
 It imports `detectax_torch` only — nothing of JAX or of `detectax`.
 """
@@ -3314,6 +3330,389 @@ def parallel_path(ckpt_root, training) -> tuple[dict, dict]:
 
 
 # --------------------------------------------------------------------------
+# phase 14: ingestion — raw VOC-layout JPEGs to a trained checkpoint
+# --------------------------------------------------------------------------
+
+INGEST_IMAGES = 64
+VOC_SIZES = ((375, 500), (500, 375))   # (h, w): VOC's two common shapes
+VOC_QUALITY = 90
+LOADER_BATCHES = 8
+# the mean |native - PIL| pixel bound of tests/test_native_loader.py
+# (pixels normalized to [-1, 1]; PIL's resize antialiases, libjpeg's
+# bilinear does not)
+NATIVE_PIL_MEAN_DIFF = 0.2
+INGEST_STEPS = 4
+RESNEXT_RTOL = 1e-4   # of the tap's largest magnitude, TF32 off
+
+
+def write_voc_tree(root: str, n: int, seed: int) -> tuple[str, str, int]:
+    """``n`` seeded JPEGs at VOC's sizes (quality 90), each drawn with
+    filled boxes, and one ``Annotations/*.xml`` each with 1-6 objects over
+    VOC's 20 classes. Returns (annotations dir, images dir, objects)."""
+    from PIL import Image
+
+    from detectax_torch.data.convert_voc import VOC_CLASSES
+
+    ann = os.path.join(root, "Annotations")
+    img_dir = os.path.join(root, "JPEGImages")
+    os.makedirs(ann)
+    os.makedirs(img_dir)
+    rng = np.random.default_rng(seed)
+    n_objects = 0
+    for i in range(n):
+        h, w = VOC_SIZES[int(rng.integers(len(VOC_SIZES)))]
+        coarse = rng.uniform(0, 255, size=(h // 25 + 1, w // 25 + 1, 3))
+        img = np.asarray(Image.fromarray(coarse.astype(np.uint8)).resize(
+            (w, h), Image.BILINEAR), np.float32)
+        img += rng.normal(0, 12, size=img.shape)
+        objects = []
+        for _ in range(int(rng.integers(1, 7))):
+            bw = int(rng.integers(w // 10, w // 2))
+            bh = int(rng.integers(h // 10, h // 2))
+            x1 = int(rng.integers(1, w - bw))
+            y1 = int(rng.integers(1, h - bh))
+            cls = int(rng.integers(len(VOC_CLASSES)))
+            img[y1:y1 + bh, x1:x1 + bw] = 255.0 * np.asarray(
+                [(cls * 37) % 256, (cls * 91) % 256, (cls * 53) % 256]
+            ) / 255.0
+            objects.append(
+                f"  <object><name>{VOC_CLASSES[cls]}</name>"
+                f"<difficult>0</difficult><bndbox><xmin>{x1}</xmin>"
+                f"<ymin>{y1}</ymin><xmax>{x1 + bw}</xmax>"
+                f"<ymax>{y1 + bh}</ymax></bndbox></object>")
+        name = f"2026_{i:06d}"
+        Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+            os.path.join(img_dir, name + ".jpg"), quality=VOC_QUALITY)
+        with open(os.path.join(ann, name + ".xml"), "w") as f:
+            f.write(f"<annotation><folder>VOC2026</folder>"
+                    f"<filename>{name}.jpg</filename><size><width>{w}"
+                    f"</width><height>{h}</height><depth>3</depth></size>\n"
+                    + "\n".join(objects) + "\n</annotation>\n")
+        n_objects += len(objects)
+    return ann, img_dir, n_objects
+
+
+def probe_libjpeg() -> dict:
+    """Whether this host's compiler finds ``jpeglib.h`` and ``-ljpeg``, and
+    its version line (the native loader's build needs all three); and the
+    libjpeg that Pillow's wheel carries, if any (a library without its
+    header)."""
+    import glob
+
+    import PIL
+
+    pillow_libs = os.path.join(os.path.dirname(os.path.dirname(
+        PIL.__file__)), "pillow.libs")
+    out = {"gxx": None, "jpeglib_h": False, "ljpeg": False,
+           "pillow_libjpeg": sorted(os.path.basename(p) for p in glob.glob(
+               os.path.join(pillow_libs, "libjpeg*")))}
+    cxx = os.environ.get("CXX", "g++")
+    try:
+        out["gxx"] = subprocess.run(
+            [cxx, "--version"], capture_output=True, text=True,
+            timeout=60).stdout.splitlines()[0]
+    except (OSError, IndexError, subprocess.SubprocessError) as e:
+        out["gxx"] = f"{cxx} did not run: {e}"
+        return out
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "probe.cpp")
+        with open(src, "w") as f:
+            f.write("#include <cstdio>\n#include <jpeglib.h>\n"
+                    "int main() { jpeg_decompress_struct c; "
+                    "c.err = jpeg_std_error(nullptr); return 0; }\n")
+        out["jpeglib_h"] = subprocess.run(
+            [cxx, "-fsyntax-only", src], capture_output=True,
+            timeout=60).returncode == 0
+        empty = os.path.join(tmp, "empty.cpp")
+        with open(empty, "w") as f:
+            f.write("int main() { return 0; }\n")
+        out["ljpeg"] = subprocess.run(
+            [cxx, empty, "-o", os.path.join(tmp, "a.out"), "-ljpeg"],
+            capture_output=True, timeout=60).returncode == 0
+    return out
+
+
+def time_loader(loader, batches: int) -> tuple[list, float]:
+    """The first ``batches`` batches of ``loader`` and its images/s on the
+    host clock, from the iterator's start to the last batch."""
+    got = []
+    t0 = time.perf_counter()
+    for batch in loader:
+        got.append(batch)
+        if len(got) == batches:
+            break
+    wall = time.perf_counter() - t0
+    return got, batches * loader.batch_size / wall
+
+
+class TorchvisionBottleneck(torch.nn.Module):
+    """torchvision's ResNeXt 32x4d bottleneck, with its state-dict keys."""
+
+    def __init__(self, inplanes, planes, stride=1, project=False):
+        super().__init__()
+        nn = torch.nn
+        width = planes * 2
+        self.conv1 = nn.Conv2d(inplanes, width, 1, bias=False)
+        self.bn1 = nn.BatchNorm2d(width)
+        self.conv2 = nn.Conv2d(width, width, 3, stride, padding=1,
+                               groups=32, bias=False)
+        self.bn2 = nn.BatchNorm2d(width)
+        self.conv3 = nn.Conv2d(width, planes * 4, 1, bias=False)
+        self.bn3 = nn.BatchNorm2d(planes * 4)
+        self.relu = nn.ReLU()
+        self.downsample = None
+        if project:
+            self.downsample = nn.Sequential(
+                nn.Conv2d(inplanes, planes * 4, 1, stride, bias=False),
+                nn.BatchNorm2d(planes * 4))
+
+    def forward(self, x):
+        idt = self.downsample(x) if self.downsample is not None else x
+        h = self.relu(self.bn1(self.conv1(x)))
+        h = self.relu(self.bn2(self.conv2(h)))
+        return self.relu(self.bn3(self.conv3(h)) + idt)
+
+
+class TorchvisionResNeXt50(torch.nn.Module):
+    """torchvision's ``resnext50_32x4d`` trunk (C3, C4, C5), built inline:
+    the card's host has no torchvision and no download."""
+
+    def __init__(self):
+        super().__init__()
+        nn = torch.nn
+        self.conv1 = nn.Conv2d(3, 64, 7, 2, padding=3, bias=False)
+        self.bn1 = nn.BatchNorm2d(64)
+        self.relu = nn.ReLU()
+        self.maxpool = nn.MaxPool2d(3, 2, padding=1)
+        inplanes = 64
+        for li, (planes, n) in enumerate(zip((64, 128, 256, 512),
+                                             (3, 4, 6, 3))):
+            blocks = []
+            for b in range(n):
+                blocks.append(TorchvisionBottleneck(
+                    inplanes, planes, 2 if (b == 0 and li > 0) else 1,
+                    project=(b == 0)))
+                inplanes = planes * 4
+            setattr(self, f"layer{li + 1}", nn.Sequential(*blocks))
+
+    def forward(self, x):
+        h = self.layer1(self.maxpool(self.relu(self.bn1(self.conv1(x)))))
+        c3 = self.layer2(h)
+        c4 = self.layer3(c3)
+        return c3, c4, self.layer4(c4)
+
+
+def resnext_import_check(tmp: str) -> dict:
+    """A seeded torchvision-layout ResNeXt-50 on the card, ported with
+    `port_torch_resnext` through the ``.npz`` into the port's
+    ``resnext50:torch`` trunk on the card: C3/C4/C5 to `RESNEXT_RTOL`."""
+    from detectax_torch.models.backbones import build_backbone
+    from detectax_torch.tools import from_flax as FF
+    from detectax_torch.tools import port_tf_weights as PW
+
+    torch.manual_seed(SEED)
+    ref = TorchvisionResNeXt50()
+    with torch.no_grad():
+        for m in ref.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.weight.uniform_(0.5, 1.5)
+                m.bias.normal_(0, 0.1)
+                m.running_mean.normal_(0, 0.5)
+                m.running_var.uniform_(0.5, 2.0)
+    ref = ref.to(DEV).eval()
+    path = os.path.join(tmp, "resnext50.npz")
+    t0 = time.perf_counter()
+    PW.save_ported(PW.port_torch_resnext(ref.state_dict(), "resnext50"),
+                   path)
+    trunk = build_backbone("resnext50:torch")
+    FF.load_flax(trunk, *FF.load_npz(path))
+    port_s = time.perf_counter() - t0
+    trunk = trunk.to(DEV).eval()
+    x = cuda(np.random.default_rng(SEED + 21).normal(
+        size=(2, 3, CANVAS, CANVAS)).astype(np.float32))
+    with torch.no_grad():
+        want = ref(x)
+        got = trunk(x)
+    rel = {}
+    for tap, w in zip(("c3", "c4", "c5"), want):
+        g = got[tap]
+        check(g.shape == w.shape, f"ResNeXt {tap}: {g.shape} vs {w.shape}")
+        rel[tap] = float((g - w).abs().max() / w.abs().max())
+        check(rel[tap] <= RESNEXT_RTOL,
+              f"ported ResNeXt-50 {tap} differs by {rel[tap]} of its "
+              f"largest magnitude (limit {RESNEXT_RTOL})")
+    return {"input": [2, 3, CANVAS, CANVAS], "npz_bytes":
+            os.path.getsize(path), "port_and_load_s": port_s,
+            "max_rel_err": rel, "rtol": RESNEXT_RTOL}
+
+
+def ingestion_path() -> tuple[dict, dict]:
+    """Raw VOC-layout JPEGs → `cli.convert_voc` → the native loader (against
+    the PIL path at the main config) → `cli.train_fcos --index` for 4 steps
+    at 384 px, batch 16 → `cli.evaluate --index` from its checkpoint on the
+    kernels and on the plain versions (detections equal) → a ResNeXt-50
+    weight import on the card. Returns (launch counts of the counted
+    training and evaluation runs, the phase's numbers)."""
+    import contextlib
+    import io
+
+    from detectax_torch.cli import convert_voc, evaluate, train_fcos
+    from detectax_torch.data import native_loader as NL
+    from detectax_torch.data.index import IndexDataset, load_index
+    from detectax_torch.data.pipeline import Loader
+    from detectax_torch.infer import predict as P
+
+    t_phase = time.perf_counter()
+    out = {}
+    counts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ann, img_dir, n_objects = write_voc_tree(
+            os.path.join(tmp, "voc"), INGEST_IMAGES, SEED + 20)
+        index = os.path.join(tmp, "voc.json")
+        quiet = io.StringIO()
+        with contextlib.redirect_stdout(quiet):
+            convert_voc.main(["--annotations_dir", ann, "--images_dir",
+                              img_dir, "--output", index])
+        classes, samples = load_index(index)
+        check(len(samples) == INGEST_IMAGES and len(classes) == NUM_CLASSES,
+              f"index: {len(samples)} samples, {len(classes)} classes")
+        check(sum(len(s["labels"]) for s in samples) == n_objects,
+              f"index holds {sum(len(s['labels']) for s in samples)} "
+              f"objects, {n_objects} were written")
+        out["dataset"] = {"images": INGEST_IMAGES, "objects": n_objects,
+                          "sizes_hw": VOC_SIZES, "quality": VOC_QUALITY,
+                          "write_and_convert_s": time.perf_counter() - t0}
+
+        # ---- the native library: build, and why not where it does not
+        probe = probe_libjpeg()
+        native = NL.available()
+        build = {"built": native, "build_s": NL.build_seconds(),
+                 "library": NL.library_path(), **probe}
+        log("native_loader_build " + json.dumps(build))
+        if not native:
+            if not (probe["jpeglib_h"] and probe["ljpeg"]):
+                log("native loader: libjpeg is missing on this host "
+                    f"(jpeglib.h found: {probe['jpeglib_h']}, -ljpeg found: "
+                    f"{probe['ljpeg']}); the native steps are skipped and "
+                    "the loaders run native=False")
+            else:
+                fail(f"the native loader did not build: "
+                     f"{NL.unavailable_reason()}")
+        out["native_build"] = build
+
+        # ---- the loaders at the main config, native against PIL
+        dataset = IndexDataset(index)
+        config = dict(batch_size=TRAIN_BATCH, canvas=CANVAS, seed=SEED,
+                      steps=LOADER_BATCHES)
+        loaders = {}
+        for mode in ((True, False) if native else (False,)):
+            got, rate = time_loader(Loader(dataset, native=mode, **config),
+                                    LOADER_BATCHES)
+            loaders["native" if mode else "pil"] = (got, rate)
+        out["loaders"] = {
+            "batch": TRAIN_BATCH, "canvas": CANVAS,
+            "batches": LOADER_BATCHES, "host_cores": os.cpu_count(),
+            "usable_cores": len(os.sched_getaffinity(0)),
+            "images_per_s": {k: v[1] for k, v in loaders.items()}}
+        if native:
+            nat, pil = loaders["native"][0], loaders["pil"][0]
+            for a, b in zip(nat, pil):
+                check(np.array_equal(a["boxes"], b["boxes"])
+                      and np.array_equal(a["valid"], b["valid"]),
+                      "native and PIL loaders gave different boxes")
+            diff = float(np.mean([np.abs(a["images"] - b["images"]).mean()
+                                  for a, b in zip(nat, pil)]))
+            check(diff < NATIVE_PIL_MEAN_DIFF,
+                  f"native against PIL: mean pixel difference {diff} "
+                  f"(bound {NATIVE_PIL_MEAN_DIFF})")
+            out["loaders"]["mean_abs_pixel_diff"] = diff
+            out["loaders"]["boxes_equal"] = True
+        del loaders
+        log("ingestion_loaders " + json.dumps(out["loaders"]))
+
+        # ---- the trainer CLI on the index (the default loader)
+        ckpt_dir = os.path.join(tmp, "ckpt")
+        kcommon.reset_launch_counts()
+        summary = train_fcos.main([
+            "--index", index, "--backbone", BACKBONE, "--canvas",
+            str(CANVAS), "--batch_size", str(TRAIN_BATCH), "--max_steps",
+            str(INGEST_STEPS), "--display_step", "2", "--step_save",
+            str(INGEST_STEPS), "--ckpt_dir", ckpt_dir,
+            "--out_dir", os.path.join(tmp, "out")])
+        counts["train"] = kcommon.launch_counts()
+        check(summary["final_step"] == INGEST_STEPS,
+              f"trainer on the index: {summary}")
+        check(np.isfinite(summary["total"])
+              and np.isfinite(summary["grad_norm"]),
+              f"trainer on the index: metrics not finite: {summary}")
+        check(counts["train"] == {"focal_fwd": INGEST_STEPS,
+                                  "focal_bwd": INGEST_STEPS},
+              f"trainer on the index launched {counts['train']}, expected "
+              f"{INGEST_STEPS} and {INGEST_STEPS}")
+        out["train"] = {k: summary[k] for k in (
+            "final_step", "images_per_sec", "total", "grad_norm")}
+        out["train"]["loader"] = "native" if native else "pil"
+
+        # ---- evaluation from the checkpoint: kernels, then plain versions
+        argv = ["--family", "fcos", "--index", index, "--backbone",
+                BACKBONE, "--canvas", str(CANVAS), "--ckpt_dir", ckpt_dir,
+                "--cls_thresh", "0.0"]
+        real_nms = P.detections_from_dense
+        recorded: list = []
+
+        def recording_nms(*a, **k):
+            dets = real_nms(*a, **k)
+            recorded.append({key: v.cpu().numpy()
+                             for key, v in dets.items()})
+            return dets
+
+        runs = {}
+        P.detections_from_dense = recording_nms
+        try:
+            for name, extra in (("kernels", []),
+                                ("plain", ["--plain_kernels"])):
+                recorded.clear()
+                kcommon.reset_launch_counts()
+                t1 = time.perf_counter()
+                with contextlib.redirect_stdout(quiet):
+                    got = evaluate.main(argv + extra)
+                runs[name] = (got, time.perf_counter() - t1,
+                              kcommon.launch_counts(), list(recorded))
+        finally:
+            P.detections_from_dense = real_nms
+        (got, eval_s, counts["evaluate"], dets_k) = runs["kernels"]
+        want, _, plain_counts, dets_p = runs["plain"]
+        batches = -(-INGEST_IMAGES // 8)
+        check(counts["evaluate"] == {"dense_nms": batches},
+              f"evaluation launched {counts['evaluate']}, expected "
+              f"{batches} dense_nms")
+        check(plain_counts == {}, f"the plain evaluation launched "
+                                  f"{plain_counts}")
+        check(got["num_images"] == INGEST_IMAGES,
+              f"evaluated {got['num_images']} images")
+        check(len(dets_k) == len(dets_p) == batches,
+              f"recorded {len(dets_k)} / {len(dets_p)} batches")
+        for i, (a, b) in enumerate(zip(dets_k, dets_p)):
+            for key in a:
+                check(np.array_equal(a[key], b[key]),
+                      f"evaluation batch {i}: {key} differ between the "
+                      "kernels and the plain versions")
+        check(got == want, f"evaluation summaries differ: kernels {got}, "
+                           f"plain versions {want}")
+        out["evaluate"] = {
+            "images": INGEST_IMAGES, "eval_s": eval_s,
+            "eval_images_per_s": INGEST_IMAGES / eval_s,
+            "detections": int(sum(d["num_valid"].sum() for d in dets_k)),
+            "detections_equal": True, "summary": got}
+
+        # ---- weight import without TensorFlow
+        out["resnext_import"] = resnext_import_check(tmp)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return counts, out
+
+
+# --------------------------------------------------------------------------
 
 def main() -> None:
     if not torch.cuda.is_available():
@@ -3552,6 +3951,12 @@ def main() -> None:
         "classes": NUM_CLASSES, "global_batch": TRAIN_BATCH,
         "phase_s": time.perf_counter() - t_dp, **parallel}))
     ckpts.cleanup()
+    torch.cuda.empty_cache()
+
+    in_counts, ingestion = ingestion_path()
+    log("ingestion " + json.dumps({
+        "card": card, "model": f"FCOS {BACKBONE} FPN", "canvas": CANVAS,
+        "classes": NUM_CLASSES, "batch": TRAIN_BATCH, **ingestion}))
 
     by_path = {
         "nms_sweep": {"fcos_serving": counts["nms_sweep"],
@@ -3578,7 +3983,9 @@ def main() -> None:
                       "stacked_hourglass_exported_serving":
                           ex_counts["stacked_hourglass"]["dense_nms"],
                       "fcos_evaluate_data_parallel_two_ranks": sum(
-                          c["dense_nms"] for c in dp_counts["gloo_evaluate"])},
+                          c["dense_nms"] for c in dp_counts["gloo_evaluate"]),
+                      "fcos_evaluate_voc_jpeg_index":
+                          in_counts["evaluate"]["dense_nms"]},
         "focal": {"fcos_training": train_counts["focal_fwd"],
                   "centernet_training": cn_train_counts["focal_fwd"],
                   "centernet_s8_training": s8_train_counts["focal_fwd"],
@@ -3602,7 +4009,9 @@ def main() -> None:
                   "fcos_bf16_training_nccl_one_rank":
                       dp_counts["nccl_bf16"]["focal_fwd"],
                   "fcos_training_gloo_two_ranks": sum(
-                      c["focal_fwd"] for c in dp_counts["gloo_train"])},
+                      c["focal_fwd"] for c in dp_counts["gloo_train"]),
+                  "fcos_training_voc_jpeg_index":
+                      in_counts["train"]["focal_fwd"]},
         "peak": {"centernet_serving": cn_counts["peak"],
                  "centernet_exported_serving":
                      ex_counts["centernet_heatmap"]["peak"]},
@@ -3628,7 +4037,8 @@ def main() -> None:
                                 + dp_counts["nccl_fp32"]["focal_bwd"]
                                 + dp_counts["nccl_bf16"]["focal_bwd"]
                                 + sum(c["focal_bwd"]
-                                      for c in dp_counts["gloo_train"]))
+                                      for c in dp_counts["gloo_train"])
+                                + in_counts["train"]["focal_bwd"])
     # the five levels: one grouped call (what training runs), and beside it
     # the five single calls of the per-level rows
     levels, grouped = focal[:len(FOCAL_LEVELS)], groups[0]

@@ -1,12 +1,15 @@
 """Single-image FCOS inference — port of `detectax/cli/infer_fcos.py`.
 
-Loads the port's weights file (an ``.npz`` keyed by the Flax parameter
-path, see `detectax_torch.tools.from_flax`), runs forward + decode +
-class-aware NMS with combined-NMS candidates, writes `heatmap.jpg` and
-`detection.jpg`, and rescales boxes back to the original image size.
+Restores the latest checkpoint under ``--ckpt_dir`` (as written by
+`cli.train_fcos`), or loads the port's weights file in its place
+(``--weights``: an ``.npz`` keyed by the Flax parameter path, see
+`detectax_torch.tools.from_flax`), runs forward + decode + class-aware NMS
+with combined-NMS candidates, writes `heatmap.jpg` and `detection.jpg`,
+and rescales boxes back to the original image size. `main` returns the
+detections (``boxes`` at the original size, ``classes``, ``scores``).
 
     python -m detectax_torch.cli.infer_fcos --img_file a.jpg \\
-        --weights weights.npz [--device cpu]
+        (--ckpt_dir ckpt | --weights weights.npz) [--device cpu]
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ from detectax_torch.infer.visualize import save_heatmap, visualize_detections
 from detectax_torch.models import FCOS
 from detectax_torch.runtime import resolve_device, set_tf32
 from detectax_torch.tools.from_flax import load_flax, load_npz
+from detectax_torch.train.driver import restore_for_inference
 
 
 def main(argv=None):
@@ -34,8 +38,10 @@ def main(argv=None):
         formatter_class=argparse.RawDescriptionHelpFormatter,
     )
     p.add_argument("--img_file", required=True)
-    p.add_argument("--weights", required=True,
-                   help=".npz weights file keyed by the Flax path")
+    p.add_argument("--ckpt_dir", default="ckpt")
+    p.add_argument("--weights", default=None,
+                   help=".npz weights file keyed by the Flax path (takes "
+                        "the place of --ckpt_dir)")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; no CPU fallback)")
     p.add_argument("--backbone", default="resnet50")
@@ -60,8 +66,12 @@ def main(argv=None):
             id_to_label = {int(k): v for k, v in json.load(f).items()}
 
     model = FCOS(num_classes=args.num_classes, backbone=args.backbone)
-    load_flax(model, *load_npz(args.weights))
-    model.to(device).eval()
+    model.to(device)
+    if args.weights:
+        load_flax(model, *load_npz(args.weights))
+        model.eval()
+    else:
+        restore_for_inference(args.ckpt_dir, model)
 
     raw = decode_image({"image_path": args.img_file})
     oh, ow = raw.shape[:2]
@@ -98,6 +108,9 @@ def main(argv=None):
     save_heatmap(hm, out_file=args.heatmap_out, image=img[0],
                  title="max class prob (all levels)")
     print(f"{n} detections -> {args.detect_out}, heatmap -> {args.heatmap_out}")
+    return {"boxes": dets["boxes"][0][:n] * scale,
+            "classes": dets["classes"][0][:n],
+            "scores": dets["scores"][0][:n]}
 
 
 def _upsample_to(hm: np.ndarray, hw):

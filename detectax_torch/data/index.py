@@ -1,12 +1,31 @@
 """Dataset index format: one JSON file listing samples + the class map.
 
-The reading half of `detectax/data/index.py`, as a copy: per-sample image
-path, normalized corner boxes and labels; and `SubsetDataset`, the
-filtered view the RetinaNet trainer takes of any dataset.
+Copy of `detectax/data/index.py`: per-sample image path, normalized
+corner boxes, labels and the resize/jitter sizes the converters bake into
+each sample (`DEFAULT_SIZES`), written by `save_index` and read by
+`load_index`; `SubsetDataset`, the filtered view the RetinaNet trainer
+takes of any dataset; and `IndexDataset`, the map-style view the `Loader`
+reads.
 """
 from __future__ import annotations
 
 import json
+import os
+from typing import Sequence
+
+DEFAULT_SIZES = {
+    # reference defaults (format_VOC_annotations.py:7-11)
+    "min_side": 384,
+    "max_side": 384,
+    "l_jitter": 240,
+    "u_jitter": 384,
+}
+
+
+def save_index(path: str, classes: Sequence[str], samples: list[dict]):
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump({"classes": list(classes), "samples": samples}, f)
 
 
 def load_index(path: str):

@@ -9,9 +9,16 @@ remaps, GT padding to ``max_boxes`` with a validity mask, and the batched,
 host-sharded, prefetching `Loader`. Boxes come out canvas-normalized
 ``(y_cen, x_cen, h, w)``, so on-device assignment runs with
 ``img_dim == img_pad == canvas``. The same seed gives the same batches as
-the JAX package's loader on its PIL path; its native C++ decode path is
-not ported. PIL is imported where a file is decoded or an image resized,
-so the module imports on a machine without it.
+the JAX package's loader, on its PIL path and on its native path: JPEG
+records decoded and resized by `data.native_loader` (libjpeg + OpenMP,
+built at first use), straight to the content size. ``native=None`` takes
+the native path whenever the library loads (it is built at the first
+JPEG record, not when the loader is made), ``native=False`` never, and
+``native=True`` raises, with the build's reason, where the library does
+not load. A record the library fails to decode (CMYK, a corrupt file)
+falls back to PIL with a printed line, as in the JAX package. PIL is
+imported where a file is decoded or an image resized, so the module
+imports on a machine without it.
 """
 from __future__ import annotations
 
@@ -277,10 +284,17 @@ class Loader:
         host_id: int = 0,
         prefetch: int = 2,
         steps: int | None = None,
+        native: bool | None = None,
         emit_uint8: bool = False,
         workers: int = 4,
         drop_remainder: bool = True,
     ):
+        if native:
+            from detectax_torch.data import native_loader as nl
+
+            if not nl.available():
+                raise RuntimeError(
+                    f"Loader(native=True): {nl.unavailable_reason()}")
         self.ds = dataset
         self.batch_size = batch_size
         # canvas: int -> fixed square; tuple -> fixed (h, w); list -> one
@@ -326,6 +340,8 @@ class Loader:
         self.host_id = host_id
         self.prefetch = prefetch
         self.steps = steps
+        # None: decided at the first JPEG record (on when the library loads)
+        self.native = native
         self.emit_uint8 = emit_uint8
         self.workers = workers
         # drop_remainder=False pads the final partial batch (repeating its
@@ -339,6 +355,20 @@ class Loader:
             rng.shuffle(idx)
         return idx[self.host_id:: self.num_hosts]
 
+    def _use_native(self, record: dict) -> bool:
+        if self.native is False or "image_path" not in record:
+            return False
+        if record.get("image") is not None:
+            return False
+        path = record["image_path"].lower()
+        if not (path.endswith(".jpg") or path.endswith(".jpeg")):
+            return False
+        if self.native is None:
+            from detectax_torch.data import native_loader as nl
+
+            self.native = nl.available()
+        return self.native
+
     def _make_example(self, record: dict, rng: np.random.Generator,
                       canvas=None, jitter=None):
         canvas = canvas or self.canvas
@@ -349,16 +379,48 @@ class Loader:
         if self.augment == "hourglass":
             do_flip = False  # flip is one arm of the joint augment
 
-        img = decode_image(record)
-        if self.augment == "hourglass":
-            img, boxes = augment_photometric_geometric(img, boxes, rng)
-        if do_flip:
-            img, boxes = flip_horizontal(img, boxes)
-        img, boxes_yxhw, _ = place_on_canvas(
-            img, boxes, canvas,
-            mode=self.mode, pad_position=self.pad_position,
-            jitter=jitter, rng=rng,
-        )
+        native_ok = False
+        if self._use_native(record):
+            # native path: header-only size read, then decode straight to
+            # the target content size (skips the full-resolution decode).
+            # Failures (CMYK JPEGs libjpeg won't convert, corrupt files)
+            # fall back to the PIL path instead of killing the run.
+            from detectax_torch.data import native_loader as nl
+
+            try:
+                h, w = nl.image_info(record["image_path"])
+                new_hw = content_target_size(
+                    h, w, canvas, mode=self.mode,
+                    jitter=jitter, rng=rng,
+                )
+                content = nl.decode_resize(record["image_path"], *new_hw)
+                native_ok = True
+            except Exception as e:
+                print(
+                    f"native decode failed for {record['image_path']!r} "
+                    f"({e}); falling back to PIL"
+                )
+        if native_ok:
+            if self.augment == "hourglass":
+                content, boxes = augment_photometric_geometric(
+                    content, boxes, rng
+                )
+            if do_flip:
+                content, boxes = flip_horizontal(content, boxes)
+            img, boxes_yxhw, _ = place_content_on_canvas(
+                content, boxes, canvas, pad_position=self.pad_position
+            )
+        else:
+            img = decode_image(record)
+            if self.augment == "hourglass":
+                img, boxes = augment_photometric_geometric(img, boxes, rng)
+            if do_flip:
+                img, boxes = flip_horizontal(img, boxes)
+            img, boxes_yxhw, _ = place_on_canvas(
+                img, boxes, canvas,
+                mode=self.mode, pad_position=self.pad_position,
+                jitter=jitter, rng=rng,
+            )
         if self.emit_uint8:
             # ship uint8 to the device (4x less host->device traffic);
             # normalization happens inside the train step

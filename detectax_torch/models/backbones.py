@@ -123,6 +123,8 @@ class ResNet(nn.Module):
             # zero pad == -inf pad here: the input is post-ReLU
             h = F.max_pool2d(F.pad(h, (1, 1, 1, 1)), kernel_size=3, stride=2)
         else:
+            # DETECTAX_POOL_VJP=1 swaps in the backward that splits a tied
+            # window's gradient (ops/pool.py), as in the JAX package
             h = max_pool_3x3_s2(h)
         taps = {}
         for name, stage, last in self.block_names:

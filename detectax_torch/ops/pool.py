@@ -1,7 +1,8 @@
 """XLA-style "SAME" padding and the 3x3 / stride-2 stem max pool.
 
 Port of `detectax/ops/pool.py::max_pool_3x3_s2`: the forward, and the
-opt-in backward that splits a tied window's gradient (`tied_vjp=True`).
+opt-in backward that splits a tied window's gradient (`tied_vjp=True`,
+or ``DETECTAX_POOL_VJP=1`` where the caller passes none).
 
 XLA pads a strided window asymmetrically, by the input size: the total is
 ``max((ceil(n/s) - 1) * s + k - n, 0)``, the low side takes the smaller
@@ -10,6 +11,8 @@ odd side; the 7x7 / stride-2 stem pads (2, 3) on an even side. PyTorch's
 own ``padding=`` is symmetric, so the port pads explicitly.
 """
 from __future__ import annotations
+
+import os
 
 import torch
 import torch.nn.functional as F
@@ -109,14 +112,17 @@ class _MaxPoolS2Tied(torch.autograd.Function):
 
 
 def max_pool_3x3_s2(x: torch.Tensor, *,
-                    tied_vjp: bool = False) -> torch.Tensor:
+                    tied_vjp: bool | None = None) -> torch.Tensor:
     """3x3 / stride-2 max pool with "SAME" padding (-inf outside) over the
     trailing (H, W) dims of an NCHW tensor.
 
     ``tied_vjp=True`` selects the backward that splits a tied window's
     gradient (`pool_bwd_tied`); it needs even H and W, and odd sizes keep
-    PyTorch's derivative, as does the default. The forward is the same
-    either way."""
+    PyTorch's derivative, as does ``False``. ``None`` (the ResNet stem's
+    call) reads ``DETECTAX_POOL_VJP=1``, as the JAX package does. The
+    forward is the same either way."""
+    if tied_vjp is None:
+        tied_vjp = os.environ.get("DETECTAX_POOL_VJP") == "1"
     if tied_vjp and x.shape[-2] % 2 == 0 and x.shape[-1] % 2 == 0:
         return _MaxPoolS2Tied.apply(x)
     return _pool_fwd_raw(x)

@@ -55,6 +55,18 @@ from detectax_torch.train import losses as TTL
 from detectax_torch.train import loop as TLoop
 from detectax_torch.train import schedules as TS
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """torch on one thread: the steps are tiny, and beside the suite's
+    other workers a pool of threads a process waits on busy cores at every
+    operation (tens of times slower)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 NC = 3
 BF16, F32 = torch.bfloat16, torch.float32
 STEP_RTOL = 2e-2

@@ -52,6 +52,28 @@ from detectax_torch.train import losses as TTL
 from detectax_torch.train import schedules as TS
 from detectax_torch.train.checkpoint import CheckpointManager
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """torch on one thread: the steps are tiny, and beside the suite's
+    other workers a pool of threads a process waits on busy cores at every
+    operation (tens of times slower). Yields the count it replaced."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield threads
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture
+def _process_threads(_one_thread):
+    """The process's own thread count for one test: the CPU convolutions'
+    backward sums in an order the thread count sets, and the three-step
+    parity below holds its 2e-6 at the count it was written under."""
+    torch.set_num_threads(_one_thread)
+    yield
+    torch.set_num_threads(1)
+
+
 NC, IMG, BATCH = 3, 64, 4
 SCALES = (16.0, 32.0, 64.0)
 MODEL_ATOL = 1e-5
@@ -508,6 +530,7 @@ def _compare_states(jstate, tstate, what, atol=PARAM_ATOL):
 # other step of both seeds stays at 4e-8. A property of comparing two
 # roundings, not of either side; that seed's state is held to 1e-5, which a
 # real fault (a wrong term, a missed update) exceeds by orders of magnitude.
+@pytest.mark.usefixtures("_process_threads")
 @pytest.mark.parametrize("kind,microbatch,seed,param_atol", [
     ("heatmap", None, 6, PARAM_ATOL),
     ("s8", None, 6, PARAM_ATOL),

@@ -47,6 +47,18 @@ from detectax_torch.kernels import ops as KO
 from detectax_torch.kernels import peak as KP
 from detectax_torch.tools import from_flax as FF
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """torch on one thread: the steps are tiny, and beside the suite's
+    other workers a pool of threads a process waits on busy cores at every
+    operation (tens of times slower)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 NC, CANVAS, BATCH = 3, 64, 2
 DET_KEYS = ("boxes", "scores", "classes", "valid", "num_valid")
 SERVING = dict(top_k=64, max_outputs=16, score_thresh=0.0)

@@ -183,16 +183,24 @@ def test_every_port_module_imports_without_a_build():
                 "cli.train_fcos_center_voc", "cli.train_fcos_center_v1_voc",
                 "ops.anchors", "models.retinanet", "cli.train_retinanet_coco",
                 "cli.infer_retinanet", "kernels.ops", "cli.export_model",
-                "parallel", "parallel.mesh", "tools.two_process_cpu_test"):
+                "parallel", "parallel.mesh", "tools.two_process_cpu_test",
+                "data.index", "data.convert_voc", "data.convert_coco",
+                "data.convert_crowdhuman", "cli.convert_voc",
+                "cli.convert_coco", "cli.convert_crowdhuman",
+                "data.native_loader", "tools.port_tf_weights"):
         assert f"detectax_torch.{new}" in mods
+    # TensorFlow and PIL are imported inside the functions that need them;
+    # the native image library is built at first use, as the kernels are
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        f"{FORBIDDEN + ('triton',)!r})\n"
+        f"{FORBIDDEN + ('triton', 'tensorflow', 'keras', 'PIL')!r})\n"
         "assert not bad, bad\n"
         "import detectax_torch.kernels._common as kc\n"
         "assert kc._lib is None and kc.build_seconds() is None\n"
+        "import detectax_torch.data.native_loader as nl\n"
+        "assert nl._lib is None and nl.build_seconds() is None\n"
         "print('imported', len(sys.modules))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO

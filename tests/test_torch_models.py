@@ -247,6 +247,68 @@ def test_backbone_forward_parity(rng, name):
         np.testing.assert_allclose(g, w, rtol=0, atol=ATOL, err_msg=tap)
 
 
+def _small_resnet_input_grad(jm, tm, params, stats, images, taps_w):
+    """Gradient of sum(tap * weights) over C3-C5 with respect to the input,
+    through the JAX trunk (traced anew at each call, so the environment is
+    read then) and the port's."""
+    def j_loss(x):
+        out = jm.apply({"params": params, "batch_stats": stats}, x,
+                       train=False)
+        return sum(jnp.sum(out[t] * taps_w[t]) for t in taps_w)
+
+    want = np.asarray(jax.jit(jax.grad(j_loss))(jnp.asarray(images)))
+    x = torch.from_numpy(images).permute(0, 3, 1, 2).requires_grad_(True)
+    out = tm(x, train=False)
+    loss = sum((out[t] * torch.from_numpy(w).permute(0, 3, 1, 2)).sum()
+               for t, w in taps_w.items())
+    loss.backward()
+    return x.grad.permute(0, 2, 3, 1).numpy(), want
+
+
+def test_pool_vjp_variable_reaches_the_resnet_stem(rng, monkeypatch):
+    """``DETECTAX_POOL_VJP=1`` swaps in the tied-window pool backward at
+    the ResNet stem (`max_pool_3x3_s2(tied_vjp=None)`), as in the JAX
+    package: the input gradient of a small ResNet matches JAX's under the
+    variable, equals the port's with ``tied_vjp=True`` passed in, and
+    differs from the default's (the ReLU'd stem leaves tied windows)."""
+    from detectax.models.backbones import ResNet as JResNet
+    from detectax_torch.models import backbones as TB
+    from detectax_torch.ops import pool as TP
+
+    # constant 16x16 patches: the 7x7 stem's outputs repeat inside a
+    # patch, so the pool's windows hold ties above zero
+    images = np.repeat(np.repeat(_images(rng, 2, 4), 16, axis=1), 16, axis=2)
+    jm = JResNet(stage_sizes=(1, 1, 1, 1), width=8)
+    params, stats = _init_flax(jm, images, rng)
+    tm = TB.ResNet(stage_sizes=(1, 1, 1, 1), width=8)
+    FF.load_flax(tm, params, stats)
+    tm.eval()
+    shapes = {t: o.shape for t, o in jax.eval_shape(
+        lambda x: jm.apply({"params": params, "batch_stats": stats}, x,
+                           train=False), jnp.asarray(images)).items()}
+    taps_w = {t: rng.normal(size=shapes[t]).astype(np.float32)
+              for t in ("c3", "c4", "c5")}
+
+    monkeypatch.delenv("DETECTAX_POOL_VJP", raising=False)
+    plain, plain_jax = _small_resnet_input_grad(jm, tm, params, stats,
+                                                images, taps_w)
+    monkeypatch.setenv("DETECTAX_POOL_VJP", "1")
+    tied, tied_jax = _small_resnet_input_grad(jm, tm, params, stats,
+                                              images, taps_w)
+    scale = float(np.abs(tied_jax).max())
+    np.testing.assert_allclose(tied, tied_jax, rtol=0, atol=ATOL * scale)
+    np.testing.assert_allclose(plain, plain_jax, rtol=0, atol=ATOL * scale)
+    assert np.abs(tied_jax - plain_jax).max() > 100 * ATOL * scale
+    assert np.abs(tied - plain).max() > 100 * ATOL * scale
+
+    monkeypatch.delenv("DETECTAX_POOL_VJP")
+    monkeypatch.setattr(TB, "max_pool_3x3_s2",
+                        functools.partial(TP.max_pool_3x3_s2, tied_vjp=True))
+    forced, _ = _small_resnet_input_grad(jm, tm, params, stats, images,
+                                         taps_w)
+    np.testing.assert_array_equal(forced, tied)
+
+
 def test_build_backbone_rejects_unknown():
     with pytest.raises(ValueError, match="unknown backbone"):
         t_build_backbone("vgg")

@@ -42,6 +42,28 @@ from detectax_torch.train import schedules as TS
 from detectax_torch.train.checkpoint import CheckpointManager
 from detectax_torch.train.driver import restore_for_inference
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """torch on one thread: the steps are tiny, and beside the suite's
+    other workers a pool of threads a process waits on busy cores at every
+    operation (tens of times slower). Yields the count it replaced."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield threads
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture
+def _process_threads(_one_thread):
+    """The process's own thread count for one test: the CPU convolutions'
+    backward sums in an order the thread count sets, and the three-step
+    parity below holds its 2e-6 at the count it was written under."""
+    torch.set_num_threads(_one_thread)
+    yield
+    torch.set_num_threads(1)
+
+
 IMG, NC, BATCH = 64, 3, 4
 PARAM_ATOL, STAT_ATOL, MOMENTUM_ATOL, METRIC_RTOL = 2e-6, 2e-6, 2e-6, 1e-4
 
@@ -331,6 +353,7 @@ def _compare_states(jstate, tstate, what):
     return worst
 
 
+@pytest.mark.usefixtures("_process_threads")
 @pytest.mark.parametrize("loss_norm,microbatch,normalize,weight_decay", [
     ("batch", None, None, 0.0),
     ("batch", 2, "tf", 1e-3),
