@@ -33,7 +33,14 @@ order:
    forward and one backward launch) segment by segment on the five FCOS
    levels read in place, ten segments (class + centerness), one segment,
    a segment of one element, a segment of no rows, mixed weights and
-   extreme logits; the peak-decode kernel in both modes
+   extreme logits, every call through the ``torch.library`` operators
+   ``detectax_torch::focal_group`` / ``focal_group_bwd`` (checked on each
+   result's autograd graph), which `torch.library.opcheck` then checks
+   on CUDA segments at the five level shapes with a weight mask, and
+   whose grouped forward and backward at those shapes, captured in one
+   `torch.cuda.graph`, must replay the eager call's bits (a replay counts
+   no launches: the count is taken in Python, at capture); the
+   peak-decode kernel in both modes
    (`peak_mask_scores` to an exact match, NaN pattern included;
    `peak_scores` to 1e-6, a differing keep/zero decision allowed only
    within 2 ulp of the neighbourhood maximum) on plateaus, all-zero
@@ -156,7 +163,18 @@ order:
    at batch 8 on the two ranks over 16 synthetic images from phase 6's
    checkpoint against `cli.evaluate` in this process at a rank's batch
    (4, the shape each image's forward has on a rank: cuDNN picks its
-   algorithm by the shape), the same detections exactly;
+   algorithm by the shape), the same detections exactly; and FSDP
+   (`shard_train_state(fsdp=True)`, 3 SGD steps of the same FCOS-R50
+   at global batch 16): one NCCL rank under torchrun, every leaf of 2**16
+   elements or more "sharded" over it (NCCL's all-gather and
+   reduce-scatter), step 1's ``total``, ``cls`` and ``grad_norm`` equal
+   to the data-parallel step's to 1e-6; two gloo ranks sharing the card,
+   step 1 equal to phase 5's to `PATHS_RTOL`, each rank launching focal
+   once forward and once backward a step, the ranks' gathered states
+   bitwise equal, and the checkpoint every rank saved restored in this
+   process, without a group, equal to that state; each with its step ms,
+   collectives a step, the bytes of parameters and optimizer state a rank
+   holds and the peak of allocated memory beside data parallelism's;
 14. ingestion, from raw files to a trained checkpoint: writes 64 seeded
    JPEGs at VOC's sizes (500 x 375 and 375 x 500, quality 90) with one
    VOC XML annotation each (1-6 objects over the 20 classes), converts
@@ -629,6 +647,8 @@ def check_focal(rng, hw, *, case="dense", classes=NUM_CLASSES, slots=None,
     def run(fn):
         xg = x.detach().requires_grad_(True)
         out = fn(z, xg, weights=w)
+        check(fn is not KF.focal_loss or through_operator(out),
+              f"{name}: focal_loss did not go through the operator")
         out.backward()
         return out.detach(), xg.grad
 
@@ -839,6 +859,8 @@ def check_focal_group(rng, case, *, timed=False):
 
     def run(group):
         out = group(segs)
+        check(group is not KF.focal_loss_group or through_operator(out),
+              f"{name}: the call did not go through the operator")
         grads = torch.autograd.grad(out, xs, upstream, allow_unused=True)
         return out.detach(), grads
 
@@ -919,6 +941,102 @@ def check_focal_groups(rng):
     """First row: the five FCOS levels, timed; then every other case."""
     return [check_focal_group(rng, case, timed=case == "levels")
             for case in FOCAL_GROUP_CASES]
+
+
+def through_operator(out: torch.Tensor) -> bool:
+    """Whether ``out`` came from the focal operator: its autograd graph
+    holds ``detectax_torch::focal_group``'s backward within a few nodes
+    (a wrapper may reshape the operator's output)."""
+    nodes = [out.grad_fn]
+    for _ in range(3):
+        if any(n is not None and "focal_group" in type(n).__name__
+               for n in nodes):
+            return True
+        nodes = [m for n in nodes if n is not None
+                 for m, _ in n.next_functions]
+    return False
+
+
+def check_focal_operator():
+    """The focal kernel as the ``torch.library`` operators
+    ``detectax_torch::focal_group`` and ``focal_group_bwd`` (what the
+    wrappers call on CUDA): `torch.library.opcheck` of both on CUDA
+    segments at the five FCOS level shapes (the class channels of ``[16,
+    h, h, 25]`` read in place) with a 0/1 weight mask; then the grouped
+    forward and backward at those shapes captured in one
+    `torch.cuda.graph`, whose replays must equal the eager call bit for
+    bit. A replay counts no launches: `count_launch` runs in Python, once,
+    at capture."""
+    gen = np.random.default_rng(SEED + 15)
+    labels, logits, weights = [], [], []
+    for hw in FOCAL_LEVELS:
+        shape = (FOCAL_BATCH, hw, hw, 5 + NUM_CLASSES)
+        labels.append(cuda((gen.uniform(size=shape) < 0.01)
+                           .astype(np.float32))[..., 5:])
+        logits.append(cuda((4.0 * gen.standard_normal(size=shape))
+                           .astype(np.float32))[..., 5:])
+        weights.append(cuda((gen.uniform(size=shape[:-1] + (1,)) < 0.7)
+                            .astype(np.float32)))
+    check(not logits[0].is_contiguous(), "operator segments contiguous")
+    row = {"segments": len(logits),
+           "elements": sum(x.numel() for x in logits)}
+    t0 = time.perf_counter()
+    for name, op, args in (
+            ("focal_group", torch.ops.detectax_torch.focal_group,
+             (labels, [x.clone().requires_grad_(True) for x in logits],
+              weights, 0.25, 2.0)),
+            ("focal_group_bwd", torch.ops.detectax_torch.focal_group_bwd,
+             (labels, logits, weights,
+              torch.linspace(0.5, 2.0, len(logits), device=DEV), 0.25,
+              2.0))):
+        result = torch.library.opcheck(op, args)
+        check(all(v == "SUCCESS" for v in result.values()),
+              f"opcheck {name}: {result}")
+        row[f"opcheck_{name}"] = result
+    row["opcheck_s"] = time.perf_counter() - t0
+
+    xs = [x.detach().requires_grad_(True) for x in logits]
+    segs = list(zip(labels, xs, weights))
+    ones = torch.ones(len(xs), device=DEV)
+
+    def fwd_bwd():
+        out = KF.focal_loss_group(segs)
+        check(through_operator(out), "focal_loss_group on CUDA did not "
+              "go through detectax_torch::focal_group")
+        return out.detach(), torch.autograd.grad(out, xs, ones)
+
+    eager = fwd_bwd()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fwd_bwd()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = kcommon.launch_counts()
+    with torch.cuda.graph(graph):
+        captured = fwd_bwd()
+    at_capture = kcommon.launch_counts()
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    replayed = kcommon.launch_counts()
+    check(torch.equal(captured[0], eager[0])
+          and all(torch.equal(a, b) for a, b in zip(captured[1], eager[1])),
+          "the captured focal forward + backward replays other bits than "
+          "the eager call")
+    row["graph_equal_to_eager"] = True
+    row["launches_counted_at_capture"] = {
+        k: at_capture.get(k, 0) - before.get(k, 0)
+        for k in ("focal_fwd", "focal_bwd")}
+    row["launches_counted_by_3_replays"] = {
+        k: replayed.get(k, 0) - at_capture.get(k, 0)
+        for k in ("focal_fwd", "focal_bwd")}
+    row["replay_ms"] = time_ms(graph.replay, warmup=2, reps=50)
+    row["replay_queued_ms"] = queued_ms(graph.replay, reps=50)
+    row["eager_call_ms"] = time_ms(fwd_bwd, warmup=2, reps=50)
+    del graph
+    return row
 
 
 def library_peak(p_nchw):
@@ -2108,6 +2226,8 @@ def check_focal_retinanet():
 
     def run(group, zz, xx):
         out = group(list(zip(zz, xx)))
+        check(group is not KF.focal_loss_group or through_operator(out),
+              f"{name}: the call did not go through the operator")
         return out.detach(), torch.autograd.grad(out, xx, upstream)
 
     before = kcommon.launch_counts()
@@ -3145,6 +3265,68 @@ def step_one(out_dir: str) -> dict:
         return json.loads(f.readline())
 
 
+def fsdp_summary(job: dict, dp_job: dict, reference: list) -> dict:
+    """An FSDP job's numbers beside the data-parallel job's of the same
+    group: step ms, collectives a step, the bytes of parameters and
+    optimizer state a rank holds after the steps, the peak of allocated
+    memory, and step 1's relative difference from ``reference[0]``."""
+    return {
+        "step_ms": job["step_ms"], "data_parallel_step_ms": dp_job["step_ms"],
+        "collectives_per_step": job["collectives_per_step"],
+        "data_parallel_collectives_per_step":
+            dp_job["collectives_per_step"],
+        "sharded_leaves": job["sharded_leaves"], "leaves": job["leaves"],
+        "state_bytes": job["state_bytes"],
+        "data_parallel_state_bytes": dp_job["state_bytes"],
+        "peak_allocated_bytes": job["peak_allocated_bytes"],
+        "data_parallel_peak_allocated_bytes":
+            dp_job["peak_allocated_bytes"],
+        "step_1_rel": {k: abs(job["metrics"][0][k] - reference[0][k])
+                       / abs(reference[0][k])
+                       for k in ("total", "cls", "grad_norm")}}
+
+
+def same_state(a: dict, b: dict) -> bool:
+    """Two `TrainState.state_dict`s equal bit for bit (step, parameters
+    and buffers, optimizer state, EMA)."""
+    def flat(sd):
+        out = {("step",): sd["step"]}
+        out.update({("model", k): v for k, v in sd["model"].items()})
+        out.update({("opt", i, k): v for i, per in sd["opt"]["state"].items()
+                    for k, v in per.items()})
+        out.update({("ema", k): v for k, v in (sd["ema"] or {}).items()})
+        return out
+
+    fa, fb = flat(a), flat(b)
+    return fa.keys() == fb.keys() and all(
+        torch.equal(fa[k].cpu(), fb[k].cpu())
+        if isinstance(fa[k], torch.Tensor) else fa[k] == fb[k] for k in fa)
+
+
+def restore_fsdp_checkpoint(ckpt_dir: str) -> dict:
+    """The state dict of a fresh FCOS training state (as the ranks build
+    it) after `CheckpointManager.restore_latest` from ``ckpt_dir``, in
+    this process, which has no group."""
+    from detectax_torch.train.checkpoint import CheckpointManager
+
+    check(not torch.distributed.is_initialized(), "this process has a group")
+    model = FCOS(num_classes=NUM_CLASSES, backbone=BACKBONE).to(DEV)
+    state = create_train_state(model, None, make_optimizer(
+        "sgd", exponential_with_floor(5e-4), grad_clip=1.0))
+    restored = CheckpointManager(ckpt_dir).restore_latest(state)
+    check(restored is not None and restored[1] == DP_STEPS,
+          f"FSDP checkpoint under {ckpt_dir}: {restored and restored[1]}")
+    sd = state.state_dict()
+    out = {"step": sd["step"],
+           "model": {k: v.cpu() for k, v in sd["model"].items()},
+           "opt": {"state": {i: {k: v.cpu() for k, v in per.items()}
+                             for i, per in sd["opt"]["state"].items()}},
+           "ema": sd["ema"]}
+    del state, model
+    torch.cuda.empty_cache()
+    return out
+
+
 def parallel_path(ckpt_root, training) -> tuple[dict, dict]:
     """(1) `torchrun --nproc_per_node 1 -m detectax_torch.cli.train_fcos`
     (NCCL) against the same CLI in this process, step 1 to `NCCL_RTOL`;
@@ -3206,7 +3388,8 @@ def parallel_path(ckpt_root, training) -> tuple[dict, dict]:
         ranks.write_jobs([
             dict(train, name="fp32", alone=True, time_all_reduce=True),
             dict(train, name="bf16", alone=True,
-                 model=dict(train["model"], dtype="bfloat16"))], work)
+                 model=dict(train["model"], dtype="bfloat16")),
+            dict(train, name="fsdp", fsdp=True)], work)
         t0 = time.perf_counter()
         run_process([*TORCHRUN, "-m", "detectax_torch.tools."
                      "two_process_cpu_test", work], 400)
@@ -3214,6 +3397,7 @@ def parallel_path(ckpt_root, training) -> tuple[dict, dict]:
             res = json.load(f)
         check(res["world_size"] == 1, f"torchrun gave {res['world_size']}")
         nccl = {"phase_s": time.perf_counter() - t0}
+        fsdp_job = res["jobs"].pop("fsdp")
         for name, job in res["jobs"].items():
             check(job["backend"] == "nccl", f"{name}: {job['backend']}")
             got, want = job["metrics"][0], job["alone"]["metrics"][0]
@@ -3238,6 +3422,23 @@ def parallel_path(ckpt_root, training) -> tuple[dict, dict]:
                         PATHS_RTOL),
                   f"NCCL step 1 {key} {fp32[key]}, train_path's "
                   f"{training['metrics_step_1'][key]}")
+        # FSDP over one NCCL rank: every leaf of 2**16 elements or more is
+        # "sharded" over the one rank, through NCCL's all-gather and
+        # reduce-scatter, against the data-parallel step of the same group
+        dp_fp32 = res["jobs"]["fp32"]
+        got = fsdp_job["metrics"][0]
+        for key in ("total", "cls", "grad_norm"):
+            check(close(got[key], fp32[key], NCCL_RTOL),
+                  f"NCCL FSDP step 1 {key} {got[key]}, the data-parallel "
+                  f"step's {fp32[key]} (rtol {NCCL_RTOL})")
+        check(fsdp_job["backend"] == "nccl" and fsdp_job["sharded_leaves"]
+              > 0, f"NCCL FSDP: {fsdp_job['backend']}, "
+              f"{fsdp_job.get('sharded_leaves')} sharded leaves")
+        check(fsdp_job["launches"].get("focal_fwd") == DP_STEPS
+              and fsdp_job["launches"].get("focal_bwd") == DP_STEPS,
+              f"NCCL FSDP launched {fsdp_job['launches']}")
+        counts["nccl_fsdp"] = fsdp_job["launches"]
+        nccl["fsdp"] = fsdp_summary(fsdp_job, dp_fp32, [fp32])
         out["torchrun_nproc_1_nccl"] = nccl
         log("parallel_nccl " + json.dumps(nccl))
 
@@ -3253,8 +3454,11 @@ def parallel_path(ckpt_root, training) -> tuple[dict, dict]:
                     "--canvas", str(CANVAS), "--cls_thresh", "0.0",
                     "--ckpt_dir", os.path.join(ckpt_root, "fcos")]
         t0 = time.perf_counter()
+        fsdp_ckpt = os.path.join(tmp, "ckpt_fsdp")
         res = ranks.launch(
             [dict(train, name="train", time_all_reduce=True),
+             dict(train, name="fsdp", fsdp=True, save_state="full",
+                  checkpoint=fsdp_ckpt, time_all_reduce=True),
              {"kind": "evaluate", "name": "evaluate",
               "argv": evaluate + ["--batch_size", "8", "--device",
                                   "cuda:0", "--data_parallel"]}],
@@ -3294,6 +3498,46 @@ def parallel_path(ckpt_root, training) -> tuple[dict, dict]:
             "step_1_rel_to_one_process": rel,
             f"step_{DP_STEPS}_rel_to_one_process": last}
         log("parallel_gloo_train " + json.dumps(gloo))
+
+        # FSDP on the two gloo ranks: step 1 against the one process of
+        # train_path, the ranks' gathered states bitwise equal, and the
+        # checkpoint (every rank saved, rank 0 wrote) restored here, in a
+        # process without a group
+        fsdp_res = [r["jobs"]["fsdp"] for r in res]
+        for rank, job in enumerate(fsdp_res):
+            check(job["backend"] == "gloo" and job["sharded_leaves"] > 0,
+                  f"FSDP rank {rank}: {job['backend']}, "
+                  f"{job.get('sharded_leaves')} sharded leaves")
+            check(job["launches"].get("focal_fwd") == DP_STEPS
+                  and job["launches"].get("focal_bwd") == DP_STEPS,
+                  f"FSDP gloo rank {rank} launched {job['launches']}")
+            check(job["metrics"] == fsdp_res[0]["metrics"],
+                  f"FSDP rank {rank}'s metrics differ from rank 0's")
+        counts["gloo_fsdp"] = [j["launches"] for j in fsdp_res]
+        got = fsdp_res[0]["metrics"]
+        for key in ("total", "cls", "grad_norm"):
+            a, b = got[0][key], training["metrics_step_1"][key]
+            check(close(a, b, PATHS_RTOL),
+                  f"two FSDP gloo ranks step 1 {key} {a}, one process {b} "
+                  f"(tolerance rtol {PATHS_RTOL})")
+        held = [torch.load(os.path.join(work, f"fsdp_rank{r}.pt"),
+                           map_location="cpu", weights_only=True)
+                for r in range(2)]
+        check(same_state(held[0], held[1]),
+              "the FSDP ranks' gathered states differ in their bits")
+        check(same_state(restore_fsdp_checkpoint(fsdp_ckpt), held[0]),
+              "the FSDP checkpoint restored without a group differs from "
+              "the ranks' gathered state")
+        gloo["fsdp"] = fsdp_summary(fsdp_res[0], train_res[0],
+                                    [training["metrics_step_1"]])
+        gloo["fsdp"]["step_ms_by_rank"] = [j["step_ms"] for j in fsdp_res]
+        gloo["fsdp"]["collective_ms"] = dict(
+            fsdp_res[0]["fsdp_collective_ms"],
+            all_reduce_of_the_gradient=fsdp_res[0]["allreduce_ms"][
+                "gradient"])
+        gloo["fsdp"]["ranks_bitwise_equal"] = True
+        gloo["fsdp"]["checkpoint_restored_without_a_group"] = True
+        log("parallel_gloo_fsdp " + json.dumps(gloo["fsdp"]))
 
         eval_res = [r["jobs"]["evaluate"] for r in res]
         t0 = time.perf_counter()
@@ -3842,6 +4086,8 @@ def main() -> None:
     groups = check_focal_groups(np.random.default_rng(SEED + 7))
     for r in groups:
         log(f"kernel focal_loss_group {json.dumps(r)}")
+    focal_op = check_focal_operator()
+    log(f"kernel focal operator {json.dumps(focal_op)}")
     peak = check_peak_all(rng)
     for r in peak[:6]:
         log(f"kernel peak {json.dumps(r)}")
@@ -4010,6 +4256,10 @@ def main() -> None:
                       dp_counts["nccl_bf16"]["focal_fwd"],
                   "fcos_training_gloo_two_ranks": sum(
                       c["focal_fwd"] for c in dp_counts["gloo_train"]),
+                  "fcos_training_fsdp_nccl_one_rank":
+                      dp_counts["nccl_fsdp"]["focal_fwd"],
+                  "fcos_training_fsdp_gloo_two_ranks": sum(
+                      c["focal_fwd"] for c in dp_counts["gloo_fsdp"]),
                   "fcos_training_voc_jpeg_index":
                       in_counts["train"]["focal_fwd"]},
         "peak": {"centernet_serving": cn_counts["peak"],
@@ -4038,6 +4288,9 @@ def main() -> None:
                                 + dp_counts["nccl_bf16"]["focal_bwd"]
                                 + sum(c["focal_bwd"]
                                       for c in dp_counts["gloo_train"])
+                                + dp_counts["nccl_fsdp"]["focal_bwd"]
+                                + sum(c["focal_bwd"]
+                                      for c in dp_counts["gloo_fsdp"])
                                 + in_counts["train"]["focal_bwd"])
     # the five levels: one grouped call (what training runs), and beside it
     # the five single calls of the per-level rows
@@ -4052,6 +4305,7 @@ def main() -> None:
     focal[0]["five_calls_fwd_ms"] = sum(r["ms"] for r in levels)
     focal[0]["five_calls_fwd_bwd_ms"] = sum(r["fwd_bwd_ms"] for r in levels)
     focal[0]["focal_loss_group"] = groups
+    focal[0]["operator"] = focal_op
 
     meta = {
         "nms_sweep": ("detectax_torch/kernels/csrc/nms_sweep.cu",

@@ -32,9 +32,16 @@ else with 4-byte loads of the same floats in the same order.
 
 Beside the wrappers stand the plain versions: `focal_loss_plain` (the
 formula of `detectax_torch.ops.losses.focal_loss`, gradient by autograd),
-`focal_loss_group_plain` (it, once a segment) and `focal_grad_plain` (the
-closed form in tensor ops). A wrapper takes the plain version only for
-tensors on the CPU; for CUDA tensors it launches the kernel or raises.
+`focal_loss_group_plain` (it, once a segment), `focal_grad_plain` (the
+closed form in tensor ops) and `focal_grad_group_plain` (it, once a
+segment). A wrapper takes the plain version only for tensors on the CPU;
+for CUDA tensors it launches the kernel or raises.
+
+The launches (`launch_fwd`, `launch_bwd`) are the CUDA implementations of
+the ``torch.library`` operators ``detectax_torch::focal_group`` and
+``detectax_torch::focal_group_bwd`` (`kernels/ops.py`), which the wrappers
+call, so that tracing (``torch.export``) and CUDA-graph capture pass
+through the training step's focal loss.
 """
 from __future__ import annotations
 
@@ -248,68 +255,84 @@ def _table(segs: Sequence[_Segment], dlogits=None):
 
 
 # One ticket counter for each (device, stream): the forward's last block
-# leaves it at 0, so it is zeroed once, when it is made.
+# leaves it at 0, so it is zeroed once, when it is made. Under CUDA-graph
+# capture a launch takes a counter of its own instead, made and zeroed by
+# nodes of the graph, so that every replay starts from 0 and no counter
+# made outside the capture is written by a replay.
 _COUNTERS: dict[tuple[int, int], torch.Tensor] = {}
 
 
 def _counter(device: torch.device, stream: int) -> torch.Tensor:
+    if torch.cuda.is_current_stream_capturing():
+        return torch.zeros(1, dtype=torch.int32, device=device)
     key = (device.index, stream)
     if key not in _COUNTERS:
         _COUNTERS[key] = torch.zeros(1, dtype=torch.int32, device=device)
     return _COUNTERS[key]
 
 
-class _FocalGroup(torch.autograd.Function):
-    """One forward and one backward launch for all segments. Labels and
-    weights get no gradient."""
+def launch_fwd(labels, logits, weights, alpha: float,
+               gamma: float) -> torch.Tensor:
+    """The forward kernel over the segments ``(labels[i], logits[i],
+    weights[i])``, read where they lie: their ``[S]`` float32 sums. The
+    CUDA implementation of the ``detectax_torch::focal_group`` operator
+    (`kernels/ops.py`)."""
+    segs = [_prepare(z, x, w) for z, x, w in zip(labels, logits, weights)]
+    device = segs[0].x.device
+    out = torch.empty(len(segs), dtype=torch.float32, device=device)
+    desc, ptrs, blocks = _table(segs)
+    if blocks == 0:
+        return out.zero_()
+    lib = load_kernels()
+    partials = torch.empty(blocks, dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.detectax_focal_group_fwd(
+            len(segs), desc, ptrs, alpha, gamma, partials.data_ptr(),
+            _counter(device, stream).data_ptr(), out.data_ptr(), stream)
+    _common.check_launch(code, "focal_fwd")
+    _common.count_launch("focal_fwd")
+    return out
 
-    @staticmethod
-    def forward(ctx, alpha, gamma, *flat):
-        segs = [_prepare(*flat[i:i + 3]) for i in range(0, len(flat), 3)]
-        device = segs[0].x.device
-        ctx.save_for_backward(*[t for s in segs for t in (s.z, s.x, s.w)])
-        ctx.layout = [(s.z_stride, s.x_stride, s.rows, s.cols) for s in segs]
-        ctx.shapes = [(flat[i + 1].shape, flat[i + 1].dtype)
-                      for i in range(0, len(flat), 3)]
-        ctx.alpha, ctx.gamma = alpha, gamma
-        out = torch.empty(len(segs), dtype=torch.float32, device=device)
-        desc, ptrs, blocks = _table(segs)
-        if blocks == 0:
-            return out.zero_()
+
+def launch_bwd(labels, logits, weights, grad_out: torch.Tensor,
+               alpha: float, gamma: float) -> list[torch.Tensor]:
+    """The backward kernel: each segment's dL/dlogits times
+    ``grad_out[i]``, contiguous, in its logits' shape and dtype. The CUDA
+    implementation of ``detectax_torch::focal_group_bwd``."""
+    segs = [_prepare(z, x, w) for z, x, w in zip(labels, logits, weights)]
+    device = segs[0].x.device
+    dlogits = [torch.empty((s.rows, s.cols), dtype=torch.float32,
+                           device=device) for s in segs]
+    desc, ptrs, blocks = _table(segs, dlogits)
+    if blocks:
+        g = grad_out.to(torch.float32).contiguous()
         lib = load_kernels()
-        partials = torch.empty(blocks, dtype=torch.float32, device=device)
         with torch.cuda.device(device):
-            stream = torch.cuda.current_stream().cuda_stream
-            code = lib.detectax_focal_group_fwd(
-                len(segs), desc, ptrs, alpha, gamma, partials.data_ptr(),
-                _counter(device, stream).data_ptr(), out.data_ptr(), stream)
-        _common.check_launch(code, "focal_fwd")
-        _common.count_launch("focal_fwd")
-        return out
+            code = lib.detectax_focal_group_bwd(
+                len(segs), desc, ptrs, alpha, gamma, g.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+        _common.check_launch(code, "focal_bwd")
+        _common.count_launch("focal_bwd")
+    return [d.reshape(x.shape).to(x.dtype) for d, x in zip(dlogits, logits)]
 
-    @staticmethod
-    def backward(ctx, grad_out):
-        saved = ctx.saved_tensors
-        segs = [_Segment(saved[3 * i], zs, saved[3 * i + 1], xs,
-                         saved[3 * i + 2], rows, cols)
-                for i, (zs, xs, rows, cols) in enumerate(ctx.layout)]
-        device = segs[0].x.device
-        dlogits = [torch.empty((s.rows, s.cols), dtype=torch.float32,
-                               device=device) for s in segs]
-        desc, ptrs, blocks = _table(segs, dlogits)
-        if blocks:
-            g = grad_out.to(torch.float32).contiguous()
-            lib = load_kernels()
-            with torch.cuda.device(device):
-                code = lib.detectax_focal_group_bwd(
-                    len(segs), desc, ptrs, ctx.alpha, ctx.gamma,
-                    g.data_ptr(), torch.cuda.current_stream().cuda_stream)
-            _common.check_launch(code, "focal_bwd")
-            _common.count_launch("focal_bwd")
-        grads = [None, None]
-        for d, (shape, dtype) in zip(dlogits, ctx.shapes):
-            grads += [None, d.reshape(shape).to(dtype), None]
-        return tuple(grads)
+
+def focal_grad_group_plain(labels, logits, weights, grad_out: torch.Tensor,
+                           alpha: float, gamma: float) -> list[torch.Tensor]:
+    """Plain version of `launch_bwd`: `focal_grad_plain` of each segment
+    times ``grad_out[i]``, contiguous, in its logits' shape and dtype."""
+    return [(focal_grad_plain(z, x, weights=w, alpha=alpha, gamma=gamma)
+             * grad_out[i].to(torch.float32)).to(x.dtype).contiguous()
+            for i, (z, x, w) in enumerate(zip(labels, logits, weights))]
+
+
+def _plain_with_autograd(logits: Sequence[torch.Tensor]) -> bool:
+    """CPU logits that need a gradient take the plain version with autograd
+    (the formula `jax.grad` differentiates); every other call goes through
+    the operator, whose CPU implementation is that plain version's forward
+    and whose backward is the closed form."""
+    return (not logits[0].is_cuda and torch.is_grad_enabled()
+            and any(x.requires_grad for x in logits))
 
 
 def focal_loss_group(
@@ -324,22 +347,27 @@ def focal_loss_group(
     A segment is ``(labels, logits)`` or ``(labels, logits, weights)``:
     labels and logits of one shape (any shape; segments may differ),
     ``weights`` broadcastable to it and multiplying each element's loss.
-    On CUDA tensors this is ONE forward launch for all segments, and
-    `backward` one backward launch (at most ``MAX_SEGMENTS`` segments a
-    call); on CPU tensors it runs `focal_loss_group_plain`."""
+    It calls the ``detectax_torch::focal_group`` operator, whose autograd
+    is ``focal_group_bwd`` (`kernels/ops.py`): on CUDA tensors ONE forward
+    launch for all segments, and `backward` one backward launch (at most
+    ``MAX_SEGMENTS`` segments a call); on CPU tensors the operator runs
+    `focal_loss_group_plain` and, backward, `focal_grad_group_plain`. CPU
+    logits that need a gradient take `focal_loss_group_plain` with
+    autograd instead."""
     segs = [_unpack(s) for s in segments]
     if not segs:
         raise ValueError("focal_loss_group needs at least one segment")
     devices = {x.device for _, x, _ in segs}
     if len(devices) > 1:
         raise ValueError(f"segments lie on several devices: {devices}")
-    if not segs[0][1].is_cuda:
+    labels, logits, weights = (list(t) for t in zip(*segs))
+    if _plain_with_autograd(logits):
         return focal_loss_group_plain(segs, alpha=alpha, gamma=gamma)
-    if len(segs) > MAX_SEGMENTS:
+    if logits[0].is_cuda and len(segs) > MAX_SEGMENTS:
         raise ValueError(f"focal_loss_group takes at most {MAX_SEGMENTS} "
                          f"segments a call, got {len(segs)}")
-    flat = [t for s in segs for t in s]
-    return _FocalGroup.apply(float(alpha), float(gamma), *flat)
+    return torch.ops.detectax_torch.focal_group(
+        labels, logits, weights, float(alpha), float(gamma))
 
 
 def focal_loss(
@@ -356,11 +384,13 @@ def focal_loss(
 
     ``weights``, when given, is broadcastable to ``logits.shape`` and
     multiplies each element's loss. On a CUDA tensor this launches the
-    forward kernel, and `backward` the backward kernel; on a CPU tensor it
-    runs `focal_loss_plain`.
+    forward kernel, and `backward` the backward kernel (through the
+    operator); on a CPU tensor it runs `focal_loss_plain` (with autograd
+    where the logits need a gradient, else through the operator).
     """
-    if not logits.is_cuda:
+    if _plain_with_autograd([logits]):
         return focal_loss_plain(labels, logits, alpha=alpha, gamma=gamma,
                                 weights=weights)
-    return _FocalGroup.apply(float(alpha), float(gamma), labels, logits,
-                             weights).reshape(())
+    return torch.ops.detectax_torch.focal_group(
+        [labels], [logits], [weights], float(alpha),
+        float(gamma)).reshape(())

@@ -1,10 +1,12 @@
-"""The serving kernels as PyTorch custom operators.
+"""The kernels as PyTorch custom operators.
 
 ``detectax_torch::dense_nms``, ``detectax_torch::nms_sweep`` and
-``detectax_torch::peak`` wrap the three kernels of the serving graph so
-that tracing (``torch.export``, and later CUDA graphs) can pass through
-them: a ``ctypes`` call on ``data_ptr()`` cannot be traced, an operator
-with a fake implementation can. Each operator has
+``detectax_torch::peak`` wrap the three kernels of the serving graph, and
+``detectax_torch::focal_group`` with ``detectax_torch::focal_group_bwd``
+(its registered autograd) the focal kernel of the training step, so that
+tracing (``torch.export``) and CUDA-graph capture can pass through them: a
+``ctypes`` call on ``data_ptr()`` cannot be traced, an operator with a
+fake implementation can. Each operator has
 
 * a CUDA implementation: the kernel's launch (the plan, the 16-byte
   alignment checks, `_common.check_launch` and `_common.count_launch`), so
@@ -17,7 +19,10 @@ On any other device an operator has no implementation and raises. The
 public wrappers (`kernels.nms.dense_nms`, `kernels.nms.nms_sweep`,
 `kernels.peak.peak_scores`, `kernels.peak.peak_mask_scores`) keep their
 signatures: they check and batch their arguments, call the operator and
-build their result around its tuple (an operator returns no dict).
+build their result around its tuple (an operator returns no dict). So do
+`kernels.focal.focal_loss_group` and `focal_loss`, which take the plain
+version with autograd, not the operator, for CPU logits that need a
+gradient.
 
 Importing this module registers the operators; `detectax_torch.kernels`
 imports it, so any kernel module does. `torch.export.load` needs the
@@ -30,6 +35,7 @@ from typing import Optional
 import torch
 
 from detectax_torch.kernels import _common
+from detectax_torch.kernels import focal as _focal
 from detectax_torch.kernels import nms as _nms
 from detectax_torch.kernels import peak as _peak
 
@@ -198,3 +204,76 @@ def _peak_cuda(x, apply_sigmoid):
 @peak.register_fake
 def _peak_fake(x, apply_sigmoid):
     return x.new_empty(x.shape, dtype=torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# focal_group: sum-reduced sigmoid focal loss of up to 32 segments
+# ---------------------------------------------------------------------------
+
+@torch.library.custom_op("detectax_torch::focal_group", mutates_args=(),
+                         device_types="cpu")
+def focal_group(labels: list[Tensor], logits: list[Tensor],
+                weights: list[Optional[Tensor]], alpha: float,
+                gamma: float) -> Tensor:
+    """Segments ``(labels[i], logits[i], weights[i])`` (any shapes; each
+    weight None or broadcastable to its logits) -> their ``[S]`` float32
+    focal sums. The segments are read where they lie (strided views
+    included). The CPU implementation is
+    `kernels.focal.focal_loss_group_plain`."""
+    return _focal.focal_loss_group_plain(
+        list(zip(labels, logits, weights)), alpha=alpha, gamma=gamma)
+
+
+@focal_group.register_kernel("cuda")
+def _focal_group_cuda(labels, logits, weights, alpha, gamma):
+    return _focal.launch_fwd(labels, logits, weights, alpha, gamma)
+
+
+@focal_group.register_fake
+def _focal_group_fake(labels, logits, weights, alpha, gamma):
+    return logits[0].new_empty((len(logits),), dtype=torch.float32)
+
+
+@torch.library.custom_op("detectax_torch::focal_group_bwd", mutates_args=(),
+                         device_types="cpu")
+def focal_group_bwd(labels: list[Tensor], logits: list[Tensor],
+                    weights: list[Optional[Tensor]], grad_out: Tensor,
+                    alpha: float, gamma: float) -> list[Tensor]:
+    """dL/dlogits of each segment times ``grad_out[i]``, contiguous, in its
+    logits' shape and dtype. The CPU implementation is
+    `kernels.focal.focal_grad_group_plain` (the closed form)."""
+    return _focal.focal_grad_group_plain(labels, logits, weights, grad_out,
+                                         alpha, gamma)
+
+
+@focal_group_bwd.register_kernel("cuda")
+def _focal_group_bwd_cuda(labels, logits, weights, grad_out, alpha, gamma):
+    return _focal.launch_bwd(labels, logits, weights, grad_out, alpha, gamma)
+
+
+@focal_group_bwd.register_fake
+def _focal_group_bwd_fake(labels, logits, weights, grad_out, alpha, gamma):
+    return [x.new_empty(x.shape) for x in logits]
+
+
+def _focal_setup(ctx, inputs, output):
+    labels, logits, weights, alpha, gamma = inputs
+    n = len(logits)
+    ctx.save_for_backward(*labels, *logits, *weights)
+    ctx.n, ctx.alpha, ctx.gamma = n, alpha, gamma
+    # a list holding a None is one leaf of the inputs' structure, a list of
+    # tensors one leaf a tensor: the backward's answer must have the same
+    ctx.weight_leaves = all(w is not None for w in weights)
+
+
+def _focal_backward(ctx, grad):
+    saved, n = ctx.saved_tensors, ctx.n
+    labels, logits, weights = saved[:n], saved[n:2 * n], saved[2 * n:]
+    dlogits = focal_group_bwd(list(labels), list(logits), list(weights),
+                              grad, ctx.alpha, ctx.gamma)
+    # labels and weights get no gradient
+    return ([None] * n, list(dlogits),
+            [None] * n if ctx.weight_leaves else None, None, None)
+
+
+focal_group.register_autograd(_focal_backward, setup_context=_focal_setup)

@@ -17,14 +17,27 @@ torchrun's rendezvous instead:
 
 with ``WORK/jobs.json`` written beforehand. Jobs, by ``kind``:
 
-- ``train``: FCOS (a state dict, or weights drawn from a seed) through
-  `make_train_step(data_parallel=dp)` on this rank's rows (`shard_batch`)
-  of the global batches of an ``.npz`` (``images_<i>``, ``boxes_<i>``,
-  ``labels_<i>``, ``valid_<i>``): the metrics and milliseconds of each
-  step, the kernel launches and the collectives of those steps, and the
-  time of one all-reduce of BatchNorm moments and of the gradient buffer;
-  with ``alone`` the same steps run first without a group, in this
-  process.
+- ``train``: a detector (a state dict, or weights drawn from a seed)
+  through `make_train_step(data_parallel=dp)` on this rank's rows
+  (`shard_batch`) of the global batches of an ``.npz`` (``images_<i>``,
+  ``boxes_<i>``, ``labels_<i>``, ``valid_<i>``): the metrics and
+  milliseconds of each step, the kernel launches and the collectives of
+  those steps, the bytes of parameters, optimizer state and EMA the rank
+  holds after them (and the bytes of their storage), and, on CUDA, the
+  peak of allocated memory; with ``alone`` the same steps run first
+  without a group, in this process; with ``time_all_reduce`` the time of
+  one all-reduce of BatchNorm moments and of the gradient buffer (under
+  FSDP also of the step's all-gather and reduce-scatter). Options:
+  ``model.family`` ``fcos`` (default) or ``retinanet`` (tiny anchors
+  8-48 px), ``model.dtype`` (``bfloat16`` for bf16 compute),
+  ``microbatch`` (global rows), ``loss_norm``, ``kernels``, ``env``,
+  ``optimizer`` (``sgd``, ``adam``, ``adamw``), ``ema_decay``, ``fsdp``
+  (the state sharded by ``shard_train_state(..., fsdp=True)``; the JAX
+  tool's scenario C is ``retinanet``, ``bfloat16``, microbatch 2 and
+  ``fsdp``), ``save_state`` (the single-process state dict of the model,
+  all-gathered under FSDP, as ``<name>_rank<r>.pt``; ``"full"``: the whole
+  `TrainState.state_dict`) and ``checkpoint`` (a directory:
+  `CheckpointManager.save` from every rank after the steps).
 - ``fit``: `cli.train_fcos.main(argv)`; the state dict of the model it
   trained.
 - ``evaluate``: `cli.evaluate.main(argv)`; the detections each image got
@@ -38,6 +51,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -47,18 +61,22 @@ import numpy as np
 import torch
 
 from detectax_torch.kernels import _common as kcommon
-from detectax_torch.models import FCOS
-from detectax_torch.ops.assign import fcos_assign
+from detectax_torch.models import FCOS, RetinaNet
+from detectax_torch.ops.anchors import anchor_shapes_per_level
+from detectax_torch.ops.assign import fcos_assign, retinanet_assign
 from detectax_torch.parallel import mesh
 from detectax_torch.runtime import set_tf32
+from detectax_torch.train.checkpoint import CheckpointManager
 from detectax_torch.train.loop import create_train_state, make_train_step
-from detectax_torch.train.losses import fcos_loss
+from detectax_torch.train.losses import fcos_loss, retinanet_loss
 from detectax_torch.train.schedules import exponential_with_floor, make_optimizer
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 # a BatchNorm layer's moments at the FPN's and heads' width: [2, 256]
 BN_MOMENTS = 2 * 256
+# the anchor sizes of the JAX tool's RetinaNet-tiny scenario
+TINY_ANCHOR_SIZES = [8.0, 16.0, 24.0, 32.0, 48.0]
 
 
 def write_jobs(jobs: list[dict], work: str) -> None:
@@ -145,31 +163,50 @@ def _sync(device: torch.device) -> None:
 
 
 def build_trainer(job: dict, device: torch.device, dp=None):
-    """(model, state, step) of a ``train`` job: FCOS at ``canvas`` px, SGD
-    on ``exponential_with_floor(lr)`` with clip ``grad_clip``."""
+    """(model, state, step) of a ``train`` job: FCOS or RetinaNet at
+    ``canvas`` px, SGD on ``exponential_with_floor(lr)`` with clip
+    ``grad_clip``."""
     m = job["model"]
     dtype = getattr(torch, m.get("dtype", "float32"))
     seed = m.get("seed")
-    model = FCOS(num_classes=m["num_classes"], backbone=m["backbone"],
-                 dtype=dtype, generator=(None if seed is None else
-                                         torch.Generator().manual_seed(seed)))
+    gen = None if seed is None else torch.Generator().manual_seed(seed)
+    canvas, nc = m["canvas"], m["num_classes"]
+    family = m.get("family", "fcos")
+    if family == "fcos":
+        model = FCOS(num_classes=nc, backbone=m["backbone"], dtype=dtype,
+                     generator=gen)
+        loss = fcos_loss
+
+        def assign_fn(boxes, labels, valid):
+            return fcos_assign(boxes, labels, valid,
+                               img_dim=(canvas, canvas), num_classes=nc)[0]
+    elif family == "retinanet":
+        anchors = anchor_shapes_per_level(anchor_sizes=TINY_ANCHOR_SIZES)
+        model = RetinaNet(num_classes=nc, n_anchors=anchors[0].shape[0],
+                          backbone=m["backbone"], dtype=dtype, generator=gen)
+        loss = retinanet_loss
+
+        def assign_fn(boxes, labels, valid):
+            return retinanet_assign(
+                boxes, labels, valid, img_dim=(canvas, canvas),
+                num_classes=nc, anchors_per_level=anchors)[0]
+    else:
+        raise ValueError(f"unknown family {family!r}")
     if m.get("weights"):
         model.load_state_dict(torch.load(m["weights"], weights_only=True))
     model.to(device)
-    canvas, nc = m["canvas"], m["num_classes"]
-
-    def assign_fn(boxes, labels, valid):
-        return fcos_assign(boxes, labels, valid, img_dim=(canvas, canvas),
-                           num_classes=nc)[0]
-
-    opt = make_optimizer("sgd", exponential_with_floor(job["lr"]),
+    opt = make_optimizer(job.get("optimizer", "sgd"),
+                         exponential_with_floor(job["lr"]),
                          grad_clip=job.get("grad_clip", 1.0))
+    ema_decay = job.get("ema_decay")
     step = make_train_step(
         model, assign_fn,
-        functools.partial(fcos_loss, kernels=job.get("kernels")), opt,
+        functools.partial(loss, kernels=job.get("kernels")), opt,
         microbatch=job.get("microbatch"),
-        loss_norm=job.get("loss_norm", "batch"), data_parallel=dp)
-    return model, create_train_state(model, None, opt), step
+        loss_norm=job.get("loss_norm", "batch"), ema_decay=ema_decay,
+        data_parallel=dp)
+    return (model, create_train_state(model, None, opt,
+                                      ema=ema_decay is not None), step)
 
 
 def load_batches(path: str) -> list[dict]:
@@ -194,16 +231,39 @@ def run_steps(state, step, batches, device) -> tuple[list, list]:
     return metrics, ms
 
 
-def time_all_reduce(numel: int, dp, reps: int) -> float:
-    """Host ms of one all-reduce sum of ``numel`` float32 over the group."""
-    t = torch.ones(numel, device=dp.device)
-    mesh._all_reduce_(t, dp)
+def time_collective(call, dp, reps: int) -> float:
+    """Host ms of one ``call()`` (a collective over the group), after one
+    call outside the timing."""
+    call()
     _sync(dp.device)
     t0 = time.perf_counter()
     for _ in range(reps):
-        mesh._all_reduce_(t, dp)
+        call()
     _sync(dp.device)
     return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def time_all_reduce(numel: int, dp, reps: int) -> float:
+    """Host ms of one all-reduce sum of ``numel`` float32 over the group."""
+    t = torch.ones(numel, device=dp.device)
+    return time_collective(lambda: mesh._all_reduce_(t, dp), dp, reps)
+
+
+def time_fsdp_collectives(numel: int, dp, reps: int) -> dict:
+    """Host ms of the FSDP step's two flat collectives at ``numel`` float32
+    a rank: the all-gather into ``world * numel`` and the reduce-scatter
+    out of it."""
+    world = dp.world_size
+    shard = torch.ones(numel, device=dp.device)
+    full = torch.ones(world * numel, device=dp.device)
+    return {
+        "all_gather": time_collective(
+            lambda: torch.distributed.all_gather_into_tensor(
+                full, shard, group=dp.group), dp, reps),
+        "reduce_scatter": time_collective(
+            lambda: torch.distributed.reduce_scatter_tensor(
+                shard, full, group=dp.group), dp, reps),
+        "shard_floats": numel}
 
 
 def train_job(job: dict, dp) -> dict:
@@ -218,8 +278,11 @@ def train_job(job: dict, dp) -> dict:
             out["alone"] = {"metrics": metrics, "step_ms": ms}
             del state, step
         model, state, step = build_trainer(job, device, dp)
-        mesh.replicate_state(state, dp)  # as `fit` starts
+        # as `fit` starts (rank 0's state on every rank), then cut
+        mesh.shard_train_state(state, dp, fsdp=bool(job.get("fsdp")))
         local = [mesh.shard_batch(b, dp) for b in global_batches]
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
         # ---- the counted run: counts set to 0 just before, read just after
         kcommon.reset_launch_counts()
         before = dp.collectives
@@ -227,16 +290,51 @@ def train_job(job: dict, dp) -> dict:
         out["launches"] = kcommon.launch_counts()
         out["collectives_per_step"] = (dp.collectives - before) / len(local)
         # ----
-    out.update(metrics=metrics, step_ms=ms)
+        if device.type == "cuda":
+            out["peak_allocated_bytes"] = torch.cuda.max_memory_allocated(
+                device)
+    out.update(metrics=metrics, step_ms=ms, state_bytes=held_bytes(state))
+    if state.fsdp is not None:
+        out["sharded_leaves"] = len(state.fsdp.sharded)
+        out["leaves"] = len(state.fsdp.axes)
     if job.get("save_state"):
-        torch.save(model.state_dict(), os.path.join(
-            job["work"], f"{job['name']}_rank{dp.rank}.pt"))
+        # under FSDP an all-gather, which every rank joins
+        sd = state.state_dict()
+        torch.save(sd if job["save_state"] == "full" else sd["model"],
+                   os.path.join(job["work"], f"{job['name']}_rank{dp.rank}.pt"))
+    if job.get("checkpoint"):
+        CheckpointManager(job["checkpoint"]).save(state.step, state)
     if job.get("time_all_reduce"):
-        n_params = sum(p.numel() for p in model.parameters())
+        n_params = sum(math.prod(s) for s in (
+            state.fsdp.shapes if state.fsdp is not None
+            else [p.shape for p in model.parameters()]))
         out["allreduce_ms"] = {
             "bn_moments": time_all_reduce(BN_MOMENTS, dp, reps=50),
             "gradient": time_all_reduce(n_params, dp, reps=5),
             "gradient_floats": n_params}
+        if state.fsdp is not None:
+            sharded = sum(math.prod(state.fsdp.shapes[i])
+                          for i in state.fsdp.sharded)
+            out["fsdp_collective_ms"] = time_fsdp_collectives(
+                sharded // dp.world_size, dp, reps=5)
+    return out
+
+
+def held_bytes(state) -> dict:
+    """Bytes this rank holds of the parameters, the optimizer state and the
+    EMA, their total, and the bytes of the storage they lie in (equal to
+    the total where no leaf is a view of a larger tensor: no full copy of
+    a sharded leaf is kept)."""
+    parts = {"parameters": [p.data for p in state.model.parameters()],
+             "optimizer": [v for per in state.opt.state.values()
+                           for v in per.values()
+                           if isinstance(v, torch.Tensor)],
+             "ema": list((state.ema or {}).values())}
+    out = {k: sum(t.numel() * t.element_size() for t in ts)
+           for k, ts in parts.items()}
+    out["total"] = sum(out.values())
+    out["storage"] = sum(t.untyped_storage().nbytes()
+                         for ts in parts.values() for t in ts)
     return out
 
 

@@ -9,7 +9,11 @@ plain tensors and numbers only and is read back with
 and renamed, so a reader never finds half a file. Saves are synchronous;
 `wait` is kept for the interface. In a data-parallel run rank 0 alone
 saves (`train.driver.fit`), and the file is the one a single-process run
-writes: it holds nothing of the group and restores without one.
+writes: it holds nothing of the group and restores without one. Under
+FSDP (`parallel.mesh.shard_train_state(..., fsdp=True)`) every rank calls
+`save`, which all-gathers the state, and rank 0 alone writes the same
+file; `restore_latest` gives each rank its slices of it (the counterpart
+of Orbax saving and restoring sharded leaves).
 """
 from __future__ import annotations
 
@@ -36,11 +40,16 @@ class CheckpointManager:
 
     def save(self, step: int, state) -> None:
         """Write ``state.state_dict()`` as the checkpoint of ``step`` and
-        drop the oldest ones beyond ``max_to_keep``."""
+        drop the oldest ones beyond ``max_to_keep``. Under FSDP every rank
+        calls it (the state dict is all-gathered) and rank 0 writes."""
+        sd = state.state_dict()
+        fsdp = getattr(state, "fsdp", None)
+        if fsdp is not None and not fsdp.dp.lead:
+            return
         path = self._path(step)
         tmp = f"{path}.{os.getpid()}.tmp"
         try:
-            torch.save(state.state_dict(), tmp)
+            torch.save(sd, tmp)
             os.replace(tmp, path)
         finally:
             if os.path.exists(tmp):

@@ -22,7 +22,9 @@ running statistics advance chunk by chunk in order.
 (`detectax_torch.parallel.mesh`) that holds its rows of a global batch: it
 gives the single-process step on the global batch, as the JAX package's
 step jitted over a mesh does (BatchNorm's statistics, the loss
-denominators and the gradient taken over the global batch).
+denominators and the gradient taken over the global batch). A state that
+`mesh.shard_train_state(..., fsdp=True)` sharded takes the FSDP step, the
+counterpart of ``make_sharded_train_step(..., fsdp=True)``.
 """
 from __future__ import annotations
 
@@ -46,9 +48,15 @@ class TrainState:
     opt: torch.optim.Optimizer
     # exponential moving average of the parameters by name (None = off)
     ema: dict | None = None
+    # the FSDP layout where `mesh.shard_train_state(..., fsdp=True)` cut
+    # the parameters, their optimizer state and EMA over a group
+    fsdp: mesh.Fsdp | None = None
 
     def state_dict(self) -> dict:
-        """Plain tensors and numbers only (what a checkpoint holds)."""
+        """Plain tensors and numbers only (what a checkpoint holds). Under
+        FSDP the single-process dict, all-gathered: every rank calls it."""
+        if self.fsdp is not None:
+            return self.fsdp.full_state_dict(self)
         return {
             "step": int(self.step),
             "model": self.model.state_dict(),
@@ -57,6 +65,10 @@ class TrainState:
         }
 
     def load_state_dict(self, sd: dict) -> None:
+        """Load a single-process dict; under FSDP this rank keeps its
+        slices of it."""
+        if self.fsdp is not None:
+            sd = self.fsdp.slice_state_dict(sd, self)
         self.model.load_state_dict(sd["model"], strict=True)
         self.opt.load_state_dict(sd["opt"])
         self.step = int(sd["step"])
@@ -145,7 +157,12 @@ def make_train_step(
         world size: global chunk ``j`` is every rank's ``j``-th local chunk
         of ``microbatch / world`` rows (the JAX package cuts the global
         batch into contiguous chunks instead, which would leave most ranks
-        idle on each).
+        idle on each). A state sharded by ``mesh.shard_train_state(...,
+        fsdp=True)`` (``state.fsdp``) takes the FSDP step: the full
+        parameters are all-gathered before the first forward, the
+        gradients of the sharded ones reduce-scattered and the others
+        all-reduced, the global norm taken over the group, the slices
+        updated (optimizer and EMA) and the full parameters freed.
 
     Returns ``step(state, batch) -> (state, metrics)`` where batch is a
     dict of ``images [B,H,W,3]``, ``boxes [B,N,4]``, ``labels [B,N]``,
@@ -191,6 +208,10 @@ def make_train_step(
         if state.model is not model:
             raise ValueError("the state holds another model than the one "
                              "this step was built for")
+        fsdp = state.fsdp
+        if fsdp is not None and fsdp.dp is not dp:
+            raise ValueError("an FSDP state must be stepped over the group "
+                             "it was sharded on (data_parallel=)")
         device = params[0].device
         images = _to_device(batch["images"], device)
         if normalize is not None:
@@ -204,6 +225,7 @@ def make_train_step(
             else:
                 y_true = assign_fn(*gt)
 
+        slices = None if fsdp is None else fsdp.gather()
         if microbatch is None or microbatch >= bsz:
             with mesh.batch_stats_over(dp):
                 grads, losses = forward_grads(images, y_true, float(bsz),
@@ -233,14 +255,19 @@ def make_train_step(
                 grads = [g * inv for g in grads]
                 losses = {k: v * inv for k, v in losses.items()}
                 losses["num_pos"] = num_pos
+        if fsdp is not None:
+            grads = fsdp.reduce_gradients(grads)
+            fsdp.release(slices)   # the full parameters are freed
+        elif dp is not None:
+            grads = mesh.all_reduce_flat(grads, dp)
         if dp is not None:
             # each rank's losses are its rows' sums over the global
             # denominator: their sums are the global step's
-            grads = mesh.all_reduce_flat(grads, dp)
             losses = mesh.all_reduce_scalars(losses, dp)
 
         metrics = dict(losses)
-        metrics["grad_norm"] = global_norm(grads)
+        metrics["grad_norm"] = (global_norm(grads) if fsdp is None
+                                else fsdp.global_norm(grads))
         optimizer.update(state.opt, grads, state.step,
                          grad_norm=metrics["grad_norm"])
         if ema_decay is not None and state.ema is not None:

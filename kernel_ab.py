@@ -23,7 +23,9 @@ and times, on the same seeded inputs:
 
 A time is the device milliseconds of one
 call: CUDA events around 50 calls queued behind a blocker of large matrix
-products, so that the host's enqueue does not show. Prints one JSON line a
+products, so that the host's enqueue does not show; the focal rows also
+carry ``call_ms``, the host milliseconds of one call in an eager loop
+(what a caller sees). Prints one JSON line a
 run, then the card (``nvidia-smi`` name and power limit) and a JSON summary
 of the best of each tree's runs; writes the whole to FILE when given.
 Needs one CUDA card and ``nvcc``.
@@ -128,12 +130,23 @@ else:
         return [KF.focal_loss(z, x) for z, x in segs]
     def fwd_bwd():
         torch.autograd.grad(fwd(), xs, [one] * len(segs))
+def call_ms(fn, reps=50):
+    # host milliseconds of one call in an eager loop: what a caller sees
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
 with torch.no_grad():
-    fwd_ms = queued_ms(fwd)
+    fwd_ms, fwd_call_ms = queued_ms(fwd), call_ms(fwd)
 out["focal"] = [
-    {"case": "five_levels_fwd", "grouped": grouped, "ms": fwd_ms},
+    {"case": "five_levels_fwd", "grouped": grouped, "ms": fwd_ms,
+     "call_ms": fwd_call_ms},
     {"case": "five_levels_fwd_bwd", "grouped": grouped,
-     "ms": queued_ms(fwd_bwd)}]
+     "ms": queued_ms(fwd_bwd), "call_ms": call_ms(fwd_bwd)}]
 shape = (16, 64, 64, 5, 24)
 zs = torch.from_numpy((frng.uniform(size=shape) < 0.01)
                       .astype(np.float32)).to(dev)[..., 4:]
@@ -192,10 +205,14 @@ def main() -> None:
             best = {t: min(r[kernel][i]["ms"] for r in runs if r["tree"] == t)
                     for t in ("parent", "change")}
             rows.append({**{k: v for k, v in shape.items()
-                            if k not in ("ms", "grouped")},
+                            if k not in ("ms", "call_ms", "grouped")},
                          "parent_ms": best["parent"],
                          "change_ms": best["change"],
                          "speedup": best["parent"] / best["change"]})
+            if "call_ms" in shape:
+                rows[-1].update({f"{t}_call_ms": min(
+                    r[kernel][i]["call_ms"] for r in runs
+                    if r["tree"] == t) for t in ("parent", "change")})
         summary[kernel] = rows
     print(card)
     print(json.dumps(summary), flush=True)

@@ -15,7 +15,12 @@ plain version `focal_loss_group_plain`. Here:
   thousand elements;
 * the launch plan `_focal_plan` and the segment table: pure functions of
   the segments' sizes that cover every element exactly once, in an order
-  that does not change between calls.
+  that does not change between calls;
+* the ``torch.library`` operators ``detectax_torch::focal_group`` and
+  ``focal_group_bwd`` (the wrappers' route on CUDA): `opcheck` on strided
+  CPU segments with weight masks, the CPU forward and registered backward
+  against the Pallas kernel in interpret mode and against `jax.grad` away
+  from logit 0, and `torch.export` of `fcos_loss` holding one call.
 """
 import ctypes
 
@@ -339,3 +344,121 @@ def test_walk_order_is_that_of_the_unit_not_of_the_loads():
     assert KF._walk_unit(20) == 4 and KF._walk_unit(21) == 1
     with pytest.raises(ValueError):
         KF.focal_walk_plain(4, 21, KF._QUAD4)
+
+
+# --------------------------------------------------------------------------
+# the torch.library operators detectax_torch::focal_group / _bwd
+# --------------------------------------------------------------------------
+
+OP_RTOL, OP_GRAD_ATOL = 2e-6, 1e-6   # the plain formula against XLA's
+
+
+def _op_segments(rng, weights):
+    """Torch segments read in place: the class channels ``y[..., 5:]`` of
+    two level maps (strided views), one centerness channel ``y[..., 4]``,
+    with a weight mask on every segment, on some or on none."""
+    maps = [tuple(torch.from_numpy(a) for a in m)
+            for m in _level_maps(rng, batch=2)[:2]]
+    segs = [(z[..., 5:], x[..., 5:]) for z, x in maps]
+    segs.append((maps[0][0][..., 4], maps[0][1][..., 4]))
+    mask = [torch.from_numpy((rng.uniform(size=x.shape[:-1] + (1,)) < 0.7)
+                             .astype(np.float32)) for _, x in segs]
+    if weights == "none":
+        mask = [None] * len(segs)
+    elif weights == "some":
+        mask[1] = None
+    return [(z, x, w) for (z, x), w in zip(segs, mask)]
+
+
+@pytest.mark.parametrize("weights", ["all", "some", "none"])
+def test_focal_operators_pass_opcheck_on_cpu_segments(rng, weights):
+    """`torch.library.opcheck` (schema, autograd registration, fake tensors,
+    AOT dispatch) of both operators on strided views with weight masks."""
+    segs = _op_segments(rng, weights)
+    assert not segs[0][1].is_contiguous()
+    labels = [z for z, _, _ in segs]
+    logits = [x.clone().requires_grad_(True) for _, x, _ in segs]
+    ws = [w for _, _, w in segs]
+    torch.library.opcheck(torch.ops.detectax_torch.focal_group,
+                          (labels, logits, ws, 0.25, 2.0))
+    torch.library.opcheck(
+        torch.ops.detectax_torch.focal_group_bwd,
+        (labels, [x for _, x, _ in segs], ws,
+         torch.linspace(0.5, 2.0, len(segs)), 0.25, 2.0))
+
+
+@pytest.mark.parametrize("case", ["levels", "weighted", "extreme"])
+def test_focal_operator_against_pallas_and_jax_grad(rng, case):
+    """The operator's CPU forward and its registered backward (the closed
+    form) against the TPU kernel in interpret mode (rtol 2e-4 on a sum,
+    atol 1e-5 on dlogits), and against `jax.grad` of the JAX package's
+    `focal_loss` away from logit 0 (rtol 2e-6, atol 1e-6)."""
+    from detectax.ops.losses import focal_loss as j_focal
+
+    segs = _segments(rng, case)
+    zs = [torch.from_numpy(np.ascontiguousarray(z)) for z, _, _ in segs]
+    xs = [torch.from_numpy(np.ascontiguousarray(x)).requires_grad_(True)
+          for _, x, _ in segs]
+    ws = [None if w is None else torch.from_numpy(w) for _, _, w in segs]
+    got = torch.ops.detectax_torch.focal_group(zs, xs, ws, 0.25, 2.0)
+    upstream = torch.linspace(0.5, 2.0, len(segs))
+    grads = torch.autograd.grad(got, xs, upstream)
+    for i, (z, x, w) in enumerate(segs):
+        jw = None if w is None else jnp.asarray(w)
+        pallas, pallas_grad = jax.value_and_grad(
+            lambda t: focal_loss_pallas(jnp.asarray(z), t, jw, 0.25, 2.0,
+                                        True))(jnp.asarray(x))
+        want, want_grad = jax.value_and_grad(
+            lambda t: j_focal(jnp.asarray(z), t, weights=jw))(jnp.asarray(x))
+        u = float(upstream[i])
+        np.testing.assert_allclose(float(got[i]), float(pallas), rtol=2e-4)
+        np.testing.assert_allclose(grads[i].numpy(),
+                                   u * np.asarray(pallas_grad), atol=1e-5)
+        np.testing.assert_allclose(float(got[i]), float(want), rtol=OP_RTOL)
+        away = x != 0.0
+        np.testing.assert_allclose(grads[i].numpy()[away],
+                                   u * np.asarray(want_grad)[away],
+                                   atol=OP_GRAD_ATOL)
+
+
+def test_cpu_wrapper_routes_by_whether_logits_need_a_gradient(rng):
+    """CPU logits that need a gradient take the plain version with
+    autograd (no operator in the graph); the others go through the
+    operator, whose CPU forward is that plain version, bit for bit."""
+    segs = [(z, x, w) for z, x, w in _op_segments(rng, "some")]
+    plain = KF.focal_loss_group_plain(segs)
+    via_op = KF.focal_loss_group(segs)
+    assert torch.equal(via_op, plain)
+    xs = [x.clone().requires_grad_(True) for _, x, _ in segs]
+    with_grad = KF.focal_loss_group(
+        [(z, x, w) for (z, _, w), x in zip(segs, xs)])
+    assert torch.equal(with_grad.detach(), plain)
+    assert "focal_group" not in type(with_grad.grad_fn).__name__.lower()
+    op = torch.ops.detectax_torch.focal_group(
+        [z for z, _, _ in segs], xs, [w for _, _, w in segs], 0.25, 2.0)
+    assert torch.equal(op.detach(), plain)
+    assert "focal_group" in type(op.grad_fn).__name__
+
+
+def test_export_of_fcos_loss_holds_one_focal_group_call(rng):
+    """`torch.export` on the CPU of a module computing `fcos_loss`'s
+    forward traces through the focal term: one ``focal_group`` call for
+    all levels, and the program gives the eager losses."""
+    class Loss(torch.nn.Module):
+        def forward(self, *maps):
+            half = len(maps) // 2
+            return TTL.fcos_loss(list(maps[:half]), list(maps[half:]))
+
+    y_true = [torch.from_numpy(z) for z, _ in _level_maps(rng)]
+    y_pred = [torch.from_numpy(x) for _, x in _level_maps(rng)]
+    for t in y_true:
+        t[..., :4] = torch.rand(t[..., :4].shape) + 0.5
+    program = torch.export.export(Loss(), (*y_true, *y_pred))
+    calls = [n.target for n in program.graph.nodes
+             if n.op == "call_function" and "focal" in str(n.target)]
+    assert calls == [torch.ops.detectax_torch.focal_group.default]
+    got = program.module()(*y_true, *y_pred)
+    want = Loss()(*y_true, *y_pred)
+    assert set(got) == set(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
