@@ -191,7 +191,20 @@ order:
    with `tools.port_tf_weights.port_torch_resnext` through the ``.npz``
    into the port's ``resnext50:torch`` trunk on the card (C3-C5 to 1e-4 of
    each tap's largest magnitude);
-15. prints one JSON line ``{"kernels": [...]}`` and, last, the ``ok`` line.
+15. the measurement programs: `bench_torch.py`'s four lines in-process
+   at 6 steps in 2 windows (the training lines' names, finite rates above
+   0, ``0 < mfu_pct <= 100``, the step's operation count equal to the
+   same step's count on the CPU, one focal launch each way a step, one
+   `dense_nms` launch a decode call; the decode line's detections on its
+   own inputs equal to the plain version's, exactly),
+   `detectax_torch.bench.serving` at buckets 1, 8 and 16 for 3
+   iterations (one `dense_nms` launch a call; each bucket's detections
+   equal to the plain version's on the same model outputs, exactly), the
+   same buckets again with the class heads' bias raised so that NMS has
+   work (every image keeping a detection, again equal to the plain
+   version's) and `detectax_torch.bench.profile_step` (its categories summing to the
+   profiler's device total within 1 %, the focal kernels there by name);
+16. prints one JSON line ``{"kernels": [...]}`` and, last, the ``ok`` line.
 
 It imports `detectax_torch` only — nothing of JAX or of `detectax`.
 """
@@ -3957,6 +3970,206 @@ def ingestion_path() -> tuple[dict, dict]:
 
 
 # --------------------------------------------------------------------------
+# phase 15: the measurement programs (bench_torch.py, bench.serving,
+# bench.profile_step)
+# --------------------------------------------------------------------------
+
+BENCH_STEPS, BENCH_WINDOWS, BENCH_NMS_ITERS = 6, 2, 20
+SERVING_BUCKETS, SERVING_ITERS = (1, 8, 16), 3
+PROFILE_SUM_RTOL = 0.01   # categories against the profiler's device total
+
+
+def exact_detections(name, got, want, *, need_valid=True) -> None:
+    """The fused path's detections (``got``, the `dense_nms` kernel)
+    against the same call on its plain version (``want``), on the same
+    tensors on the card: every output exactly, as `check_dense` holds
+    them; with ``need_valid``, every image keeps a detection."""
+    for key in ("boxes", "scores", "classes", "valid", "num_valid"):
+        check(got[key].shape == want[key].shape
+              and got[key].dtype == want[key].dtype
+              and torch.equal(got[key], want[key]),
+              f"{name}: {key} differs from the plain version's "
+              f"(exact match expected)")
+    if need_valid:
+        check(int(want["num_valid"].min()) > 0,
+              f"{name}: an image has no detection "
+              f"(num_valid {want['num_valid'].tolist()})")
+
+
+def serving_against_plain(name, model, decode, args, images, *,
+                          need_valid) -> int:
+    """One forward and decode of ``images``, then `detections_from_dense`
+    as `make_serving_fn` calls it, on the kernel and on its plain version:
+    exactly equal. Returns the detections kept."""
+    from detectax_torch.infer import predict as P
+
+    with torch.no_grad():
+        boxes, probs = decode(model(images, train=False))
+        got, want = (P.detections_from_dense(boxes, probs, top_k=args.top_k,
+                                             kernels=k)
+                     for k in (None, "plain"))
+    exact_detections(name, got, want, need_valid=need_valid)
+    return int(want["num_valid"].sum())
+
+
+def measurement_path() -> tuple[dict, dict]:
+    """`bench_torch.py`'s lines, the serving bench and the step profile,
+    in this process at reduced steps; each part driven with the launch
+    counts set to 0 just before it and read just after. Returns (counts a
+    part, the lines and the checks' numbers)."""
+    import bench_torch
+    from detectax_torch.bench import decode as bench_decode
+    from detectax_torch.bench import profile_step as bench_profile
+    from detectax_torch.bench import serving as bench_serving
+    from detectax_torch.bench import train as bench_train
+    from detectax_torch.cli.evaluate import build_family
+
+    t0 = time.perf_counter()
+    # the same step's count on the CPU: at batch 1, in float32, times the
+    # batch (a convolution's count is linear in the batch and independent
+    # of the dtype; tests/test_torch_bench.py holds both)
+    cpu = bench_train.make_train_setup(CANVAS, 1, BACKBONE, device="cpu",
+                                       dtype=torch.float32)
+    cpu_flops = bench_train.step_flops(cpu) * TRAIN_BATCH
+    del cpu
+    cpu_s = time.perf_counter() - t0
+
+    counts = {}
+    kcommon.reset_launch_counts()
+    lines = bench_torch.bench_train(CANVAS, TRAIN_BATCH, BENCH_STEPS,
+                                    BENCH_WINDOWS, BACKBONE)
+    counts["train"] = kcommon.launch_counts()
+    kcommon.reset_launch_counts()
+    lines.append(bench_torch.emit(bench_decode.decode_line(BENCH_NMS_ITERS)))
+    counts["decode"] = kcommon.launch_counts()
+    torch.cuda.empty_cache()
+
+    base = f"train_images_per_sec_fcos_{BACKBONE}_{CANVAS}px_b{TRAIN_BATCH}"
+    names = [base + "_bf16", base + "_bf16_bnsubset4",
+             base + "_bf16_freeze_bn", "decode_nms_latency_fcos_512px_k1024"]
+    check([ln["metric"] for ln in lines] == names,
+          f"bench_torch lines {[ln['metric'] for ln in lines]}")
+    steps_a_line = (1 + bench_train.WARMUP_STEPS
+                    + BENCH_WINDOWS * (BENCH_STEPS // BENCH_WINDOWS))
+    for ln in lines:
+        check(np.isfinite(ln["value"]) and ln["value"] > 0,
+              f"{ln['metric']}: value {ln['value']}")
+    for ln in lines[:3]:
+        d = ln["detail"]
+        check(0 < ln["mfu_pct"] <= 100, f"{ln['metric']}: mfu_pct "
+              f"{ln['mfu_pct']}")
+        check(d["step_flops"] == cpu_flops,
+              f"{ln['metric']}: step_flops {d['step_flops']}, the same "
+              f"step on the CPU {cpu_flops}")
+        check(np.isfinite(d["final_loss"]), f"{ln['metric']}: final loss")
+        want = {"focal_fwd": steps_a_line, "focal_bwd": steps_a_line}
+        check(d["launches"] == want,
+              f"{ln['metric']}: launches {d['launches']}, expected {want}")
+    check(counts["train"] == {"focal_fwd": 3 * steps_a_line,
+                              "focal_bwd": 3 * steps_a_line},
+          f"training lines launched {counts['train']}")
+    check(lines[3]["detail"]["launches"] == {"dense_nms": BENCH_NMS_ITERS}
+          and counts["decode"] == {"dense_nms": BENCH_NMS_ITERS + 1},
+          f"decode line launched {counts['decode']}")
+    # the decode line's detections against the plain version on the
+    # line's own inputs (B=1, M=5,456, 20 classes)
+    outs = [cuda(o) for o in bench_decode.decode_inputs()]
+    with torch.no_grad():
+        got = bench_decode.decode_and_nms(outs)
+        exact_detections("decode line", got, bench_decode.decode_and_nms(
+            outs, kernels="plain"))
+    decode_kept = int(got["num_valid"][0])
+    del outs, got
+
+    serving_argv = ["--buckets", *map(str, SERVING_BUCKETS),
+                    "--iters", str(SERVING_ITERS)]
+    kcommon.reset_launch_counts()
+    served = bench_serving.main(serving_argv)
+    counts["serving"] = kcommon.launch_counts()
+    # the same model (the seeded weights, bf16, 8 classes, M=3,069) and
+    # the same batches, against the plain version: the seeded class heads
+    # keep every score under the threshold, so NMS selects nothing here
+    args = bench_serving.parse_args(serving_argv)
+    dev = torch.device("cuda")
+    model, decode = build_family(args.family, args.num_classes,
+                                 args.backbone, args.canvas, args,
+                                 dtype=(torch.bfloat16 if args.bf16
+                                        else torch.float32))
+    model = model.to(dev).eval()
+    batches = bench_serving.bucket_images(args.buckets, args.canvas, dev)
+    seeded_kept = [serving_against_plain(
+        f"serving b{x.shape[0]}", model, decode, args, x, need_valid=False)
+        for x in batches]
+    # then with the class heads' bias raised, so that NMS has work: the
+    # serving lines again, driven from 0, each image keeping a detection
+    with torch.no_grad():
+        for i in range(1, 6):
+            getattr(model, f"cls_head_{i}").Conv_0.bias.fill_(CLS_HEAD_BIAS)
+    fn = make_serving_fn(model, decode, top_k=args.top_k)
+    kcommon.reset_launch_counts()
+    served_work = [bench_serving.bucket_line(fn, args, x) for x in batches]
+    counts["serving_nms_work"] = kcommon.launch_counts()
+    for ln in served_work:
+        check(np.isfinite(ln["value"]) and ln["value"] > 0
+              and min(ln["detail"]["num_valid"]) > 0,
+              f"{ln['metric']} (class-head bias {CLS_HEAD_BIAS}): value "
+              f"{ln['value']}, num_valid {ln['detail']['num_valid']}")
+    check(counts["serving_nms_work"] == {
+        "dense_nms": len(SERVING_BUCKETS) * (2 + SERVING_ITERS)},
+        f"serving with NMS work launched {counts['serving_nms_work']}")
+    work_kept = [serving_against_plain(
+        f"serving b{x.shape[0]}, class-head bias {CLS_HEAD_BIAS}", model,
+        decode, args, x, need_valid=True) for x in batches]
+    del model, fn, batches
+    check([ln["metric"] for ln in served] ==
+          [f"serving_img_per_sec_fcos_mobilenetv2_384px_b{b}"
+           for b in SERVING_BUCKETS],
+          f"serving lines {[ln['metric'] for ln in served]}")
+    for ln in served:
+        check(np.isfinite(ln["value"]) and ln["value"] > 0,
+              f"{ln['metric']}: value {ln['value']}")
+        check(ln["detail"]["launches"] == {"dense_nms": SERVING_ITERS},
+              f"{ln['metric']}: launches {ln['detail']['launches']}")
+    check(counts["serving"] == {
+        "dense_nms": len(SERVING_BUCKETS) * (2 + SERVING_ITERS)},
+        f"serving launched {counts['serving']}")
+    torch.cuda.empty_cache()
+
+    kcommon.reset_launch_counts()
+    summary = bench_profile.main([])
+    counts["profile"] = kcommon.launch_counts()
+    categories = summary["by_category"]
+    total = summary["key_averages_device_ms"]
+    summed = sum(r["ms"] for r in categories.values())
+    check(abs(summed - total) <= PROFILE_SUM_RTOL * total,
+          f"profile: categories sum to {summed} ms, the profiler's device "
+          f"total is {total} ms")
+    check(all(f"port:focal_{d}_kernel" in categories
+              for d in ("fwd", "bwd")),
+          f"profile: no focal kernel by name in {list(categories)}")
+    check(0.0 <= summary["idle_share"] < 1.0,
+          f"profile: idle share {summary['idle_share']}")
+    profiled = 2 + bench_train.WARMUP_STEPS   # counted, warm-up, traced
+    check(counts["profile"] == {"focal_fwd": profiled,
+                                "focal_bwd": profiled},
+          f"profile launched {counts['profile']}")
+    torch.cuda.empty_cache()
+    return counts, {
+        "cpu_step_flops": cpu_flops, "cpu_count_s": cpu_s,
+        "bench_torch": lines, "serving": served,
+        "serving_nms_work": served_work,
+        "kept_vs_plain": {"decode": decode_kept, "serving": seeded_kept,
+                          "serving_nms_work": work_kept},
+        "profile": {k: summary[k] for k in (
+            "device_ms", "key_averages_device_ms", "busy_ms", "window_ms",
+            "idle_share", "step_ms_unprofiled", "idle_share_unprofiled",
+            "kernels", "by_phase", "gemm_tflops_per_s_from_step_count")},
+        "profile_categories_ms_sum": summed,
+        "phase_s": time.perf_counter() - t0,
+    }
+
+
+# --------------------------------------------------------------------------
 
 def main() -> None:
     if not torch.cuda.is_available():
@@ -3965,13 +4178,7 @@ def main() -> None:
         sys.exit(1)
     t_start = time.perf_counter()
     kind = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        timeout=60,
-    ).stdout.strip().splitlines()
-    card = smi[0] if smi else "nvidia-smi gave nothing"
+    card = runtime.card_name_and_power()
     log(f"device: {kind} | torch {torch.__version__} cuda {torch.version.cuda}")
     log(f"nvidia-smi name, power.limit: {card}")
     log(f"tf32: {json.dumps(runtime.set_tf32(False))}")
@@ -4203,6 +4410,13 @@ def main() -> None:
     log("ingestion " + json.dumps({
         "card": card, "model": f"FCOS {BACKBONE} FPN", "canvas": CANVAS,
         "classes": NUM_CLASSES, "batch": TRAIN_BATCH, **ingestion}))
+    torch.cuda.empty_cache()
+
+    ms_counts, measured = measurement_path()
+    log("measurement_programs " + json.dumps({
+        "card": card, "model": f"FCOS {BACKBONE} FPN", "canvas": CANVAS,
+        "batch": TRAIN_BATCH, "bench_steps": BENCH_STEPS,
+        "bench_windows": BENCH_WINDOWS, **measured}))
 
     by_path = {
         "nms_sweep": {"fcos_serving": counts["nms_sweep"],
@@ -4231,7 +4445,12 @@ def main() -> None:
                       "fcos_evaluate_data_parallel_two_ranks": sum(
                           c["dense_nms"] for c in dp_counts["gloo_evaluate"]),
                       "fcos_evaluate_voc_jpeg_index":
-                          in_counts["evaluate"]["dense_nms"]},
+                          in_counts["evaluate"]["dense_nms"],
+                      "bench_torch_decode_line":
+                          ms_counts["decode"]["dense_nms"],
+                      "serving_bench": ms_counts["serving"]["dense_nms"],
+                      "serving_bench_nms_work":
+                          ms_counts["serving_nms_work"]["dense_nms"]},
         "focal": {"fcos_training": train_counts["focal_fwd"],
                   "centernet_training": cn_train_counts["focal_fwd"],
                   "centernet_s8_training": s8_train_counts["focal_fwd"],
@@ -4261,7 +4480,10 @@ def main() -> None:
                   "fcos_training_fsdp_gloo_two_ranks": sum(
                       c["focal_fwd"] for c in dp_counts["gloo_fsdp"]),
                   "fcos_training_voc_jpeg_index":
-                      in_counts["train"]["focal_fwd"]},
+                      in_counts["train"]["focal_fwd"],
+                  "bench_torch_training_lines":
+                      ms_counts["train"]["focal_fwd"],
+                  "profile_step": ms_counts["profile"]["focal_fwd"]},
         "peak": {"centernet_serving": cn_counts["peak"],
                  "centernet_exported_serving":
                      ex_counts["centernet_heatmap"]["peak"]},
@@ -4291,7 +4513,9 @@ def main() -> None:
                                 + dp_counts["nccl_fsdp"]["focal_bwd"]
                                 + sum(c["focal_bwd"]
                                       for c in dp_counts["gloo_fsdp"])
-                                + in_counts["train"]["focal_bwd"])
+                                + in_counts["train"]["focal_bwd"]
+                                + ms_counts["train"]["focal_bwd"]
+                                + ms_counts["profile"]["focal_bwd"])
     # the five levels: one grouped call (what training runs), and beside it
     # the five single calls of the per-level rows
     levels, grouped = focal[:len(FOCAL_LEVELS)], groups[0]

@@ -76,13 +76,16 @@ TRAIN_GEOMETRY = {
 }
 
 
-def build_family(family, nc, backbone, canvas, args, kernels=None):
-    """(model, decode) of ``family``; ``kernels="plain"`` makes the decode
-    run the peak kernel's plain version."""
+def build_family(family, nc, backbone, canvas, args, kernels=None,
+                 dtype=torch.float32):
+    """(model, decode) of ``family``, the model computing in ``dtype``;
+    ``kernels="plain"`` makes the decode run the peak kernel's plain
+    version."""
     if family in ("fcos", "fcos_center", "fcos_center_v1"):
         variant = {"fcos": "fcos", "fcos_center": "center",
                    "fcos_center_v1": "center_v1"}[family]
-        model = FCOS(num_classes=nc, variant=variant, backbone=backbone)
+        model = FCOS(num_classes=nc, variant=variant, backbone=backbone,
+                     dtype=dtype)
         if family == "fcos_center_v1":
             scales = [32.0, 64.0, 128.0, 256.0, float(canvas)]
             decode = lambda outs: P.fcos_center_v1_decode(
@@ -96,19 +99,21 @@ def build_family(family, nc, backbone, canvas, args, kernels=None):
     if family == "centernet_s8":
         scales = tuple(args.box_scales)
         model = CenterNetS8(num_classes=nc, n_scales=len(scales),
-                            backbone=backbone)
+                            backbone=backbone, dtype=dtype)
         return model, lambda out: P.centernet_s8_decode(out, box_scales=scales)
     if family == "centernet_heatmap":
-        model = CenterNetFPNSingle(num_classes=nc, backbone=backbone)
+        model = CenterNetFPNSingle(num_classes=nc, backbone=backbone,
+                                   dtype=dtype)
         return model, lambda out: P.centernet_heatmap_decode(
             out, kernels=kernels
         )
     if family == "hourglass":
-        model = HourglassNet(num_classes=nc, n_filters=args.n_filters)
+        model = HourglassNet(num_classes=nc, n_filters=args.n_filters,
+                             dtype=dtype)
         return model, hourglass_decode_fn(family, canvas=canvas)
     if family == "stacked_hourglass":
         model = StackedHourglass(num_classes=nc, n_filters=args.n_filters,
-                                 n_stacks=args.n_stacks)
+                                 n_stacks=args.n_stacks, dtype=dtype)
         return model, hourglass_decode_fn(family,
                                           stride=model.output_stride)
     if family == "retinanet":
@@ -118,6 +123,7 @@ def build_family(family, nc, backbone, canvas, args, kernels=None):
             num_classes=nc, n_anchors=anchors[0].shape[0],
             backbone=backbone,
             per_anchor_heads=getattr(args, "per_anchor_heads", False),
+            dtype=dtype,
         )
         return model, lambda outs: P.retinanet_decode(
             outs, anchors_per_level=anchors)

@@ -187,7 +187,9 @@ def test_every_port_module_imports_without_a_build():
                 "data.index", "data.convert_voc", "data.convert_coco",
                 "data.convert_crowdhuman", "cli.convert_voc",
                 "cli.convert_coco", "cli.convert_crowdhuman",
-                "data.native_loader", "tools.port_tf_weights"):
+                "data.native_loader", "tools.port_tf_weights", "bench",
+                "bench._common", "bench.train", "bench.decode",
+                "bench.serving", "bench.profile_step"):
         assert f"detectax_torch.{new}" in mods
     # TensorFlow and PIL are imported inside the functions that need them;
     # the native image library is built at first use, as the kernels are
@@ -225,7 +227,8 @@ def _imported_roots(path):
 def _port_sources():
     files = glob.glob(os.path.join(REPO, "detectax_torch", "**", "*.py"),
                       recursive=True)
-    return sorted(files) + [os.path.join(REPO, "chip_smoke.py")]
+    return sorted(files) + [os.path.join(REPO, "chip_smoke.py"),
+                            os.path.join(REPO, "bench_torch.py")]
 
 
 def test_static_scan_finds_no_forbidden_import():
