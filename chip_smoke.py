@@ -204,7 +204,16 @@ order:
    work (every image keeping a detection, again equal to the plain
    version's) and `detectax_torch.bench.profile_step` (its categories summing to the
    profiler's device total within 1 %, the focal kernels there by name);
-16. prints one JSON line ``{"kernels": [...]}`` and, last, the ``ok`` line.
+16. crop pretraining and the DetBench driver: 40 steps of
+   `detectax_torch.bench.pretrain_backbone` for MobileNetV2 at batch 64,
+   crops of 128 px (losses finite, the saved trunk's tree that of the
+   committed JAX trunk); `python -m detectax_torch.bench.run_detbench
+   --families centernet_s8 centernet_heatmap --steps 4` from that trunk as
+   a subprocess (both rows written, the trunk loaded); the
+   centernet_heatmap row's evaluation in this process on the kernels and
+   on their plain versions (summaries equal, one `dense_nms` and one
+   `peak` launch a batch, exactly);
+17. prints one JSON line ``{"kernels": [...]}`` and, last, the ``ok`` line.
 
 It imports `detectax_torch` only — nothing of JAX or of `detectax`.
 """
@@ -4171,6 +4180,151 @@ def measurement_path() -> tuple[dict, dict]:
 
 # --------------------------------------------------------------------------
 
+# --------------------------------------------------------------------------
+# phase 16: crop pretraining and the DetBench driver
+# --------------------------------------------------------------------------
+
+PRETRAIN_STEPS = 40
+PRETRAIN_ARGS = ("--backbone", "mobilenetv2", "--steps", str(PRETRAIN_STEPS),
+                 "--warmup_steps", "10", "--batch_size", "64", "--crop",
+                 "128", "--eval_batches", "2", "--display_step", "10")
+JAX_MBV2_TRUNK = os.path.join(REPO, "benchmarks", "runs", "pretrain_mbv2",
+                              "backbone.msgpack")
+DRIVER_STEPS = 4
+DRIVER_FAMILIES = ("centernet_s8", "centernet_heatmap")
+EVAL_IMAGES, EVAL_BATCH = 256, 8   # the v1 eval split, cli.evaluate's batch
+
+
+def tree_layout(params: dict, batch_stats: dict) -> dict:
+    """(shape, dtype) of every leaf, keyed by its Flax path."""
+    from detectax_torch.tools.from_flax import _flatten
+
+    return {"/".join(path): (tuple(v.shape), str(v.dtype))
+            for top, tree in (("params", params),
+                              ("batch_stats", batch_stats))
+            for path, v in _flatten(tree, (top,))}
+
+
+def pretrain_driver_path() -> tuple[dict, dict]:
+    """Crop pretraining, then the DetBench driver from its trunk.
+
+    1. `detectax_torch.bench.pretrain_backbone.main` for MobileNetV2, 40
+       steps (10 of warmup) at batch 64, crops of 128 px, 2 evaluation
+       batches: every loss finite, the saved trunk's tree (keys, shapes,
+       dtypes) that of the committed JAX trunk; ms a step and crops/s.
+    2. `python -m detectax_torch.bench.run_detbench --families
+       centernet_s8 centernet_heatmap --steps 4 --trunk <that .npz>` as a
+       subprocess, into a temporary run root and DetBench cache: both rows
+       without an error, 4 training steps, mAP@0.5 in [0, 1], and the
+       centernet_s8 log saying that the trunk was loaded.
+    3. The centernet_heatmap row's evaluate argv from `family_commands`
+       in this process on the kernels (the counted run) and again with
+       ``--plain_kernels``: the summaries equal. Expected launches: the
+       256 eval images at batch 8 are 32 batches, each one `peak` launch
+       (the heatmap decode) and one `dense_nms` launch (the fused NMS):
+       exactly {"dense_nms": 32, "peak": 32}.
+    Returns (the counted run's launches, the phase's numbers)."""
+    import contextlib
+    import io
+
+    from detectax_torch.bench import pretrain_backbone, run_detbench
+    from detectax_torch.cli import evaluate
+    from detectax_torch.data.detbench import DetBenchDataset
+    from detectax_torch.tools.from_flax import load_npz, read_msgpack
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["DETECTAX_DETBENCH_CACHE"] = os.path.join(tmp, "cache")
+        t0 = time.perf_counter()
+        DetBenchDataset("train")
+        DetBenchDataset("eval")
+        cache_s = time.perf_counter() - t0
+
+        trunk = os.path.join(tmp, "pretrain_mbv2", "backbone.npz")
+        meta = pretrain_backbone.main([*PRETRAIN_ARGS, "--out", trunk])
+        timing = meta["timing"]
+        losses = timing["losses"]
+        check(len(losses) == PRETRAIN_STEPS
+              and all(np.isfinite(v) for v in losses),
+              f"pretraining losses: {losses}")
+        check(0.0 <= meta["eval_crop_acc"] <= 1.0,
+              f"pretraining eval accuracy {meta['eval_crop_acc']}")
+        committed = read_msgpack(JAX_MBV2_TRUNK)
+        want = tree_layout(committed["params"], committed["batch_stats"])
+        got = tree_layout(*load_npz(trunk))
+        check(got == want, "the pretrained trunk's tree differs from the "
+              f"committed JAX trunk's: {sorted(set(got) ^ set(want))[:8]}, "
+              f"{[k for k in got if k in want and got[k] != want[k]][:8]}")
+
+        run_root = os.path.join(tmp, "runs")
+        out = os.path.join(tmp, "RESULTS_detbench_v1.json")
+        driver_argv = ["--families", *DRIVER_FAMILIES, "--steps",
+                       str(DRIVER_STEPS), "--trunk", trunk, "--run_root",
+                       run_root, "--out", out]
+        t1 = time.perf_counter()
+        run_process([sys.executable, "-m",
+                     "detectax_torch.bench.run_detbench", *driver_argv],
+                    timeout=600)
+        driver_s = time.perf_counter() - t1
+        with open(out) as f:
+            rows = json.load(f)
+        for fam in DRIVER_FAMILIES:
+            row = rows.get(fam, {})
+            check("error" not in row and row.get("train_steps")
+                  == DRIVER_STEPS and 0.0 <= row.get("mAP@0.5", -1) <= 1.0,
+                  f"the driver's {fam} row: {row}")
+        with open(os.path.join(run_root, "centernet_s8", "log.txt")) as f:
+            s8_log = f.read()
+        loaded = f"initialized backbone MobileNetV2_0 from {trunk}"
+        check(loaded in s8_log,
+              f"the centernet_s8 log does not say '{loaded}':\n"
+              f"{s8_log[-3000:]}")
+
+        args = run_detbench.parse_args(driver_argv)
+        _, eval_cmd = run_detbench.family_commands("centernet_heatmap", args)
+        argv = eval_cmd[eval_cmd.index("-m") + 2:]
+        quiet = io.StringIO()
+        # ---- the counted run: counts set to 0 just before, read just after
+        kcommon.reset_launch_counts()
+        t2 = time.perf_counter()
+        with contextlib.redirect_stdout(quiet):
+            summary = evaluate.main(argv)
+        eval_s = time.perf_counter() - t2
+        counts = kcommon.launch_counts()
+        # ----
+        with contextlib.redirect_stdout(quiet):
+            plain = evaluate.main(argv + ["--plain_kernels"])
+        check(kcommon.launch_counts() == counts,
+              "the plain-kernel evaluation launched a kernel")
+        del os.environ["DETECTAX_DETBENCH_CACHE"]
+    batches = -(-EVAL_IMAGES // EVAL_BATCH)
+    check(counts == {"dense_nms": batches, "peak": batches},
+          f"the centernet_heatmap evaluation launched {counts}, expected "
+          f"{batches} dense_nms and {batches} peak")
+    check(summary["num_images"] == EVAL_IMAGES,
+          f"evaluated {summary['num_images']} images")
+    check(summary == plain, f"centernet_heatmap summaries differ: kernels "
+                            f"{summary}, plain versions {plain}")
+    return counts, {
+        "cache_s": cache_s,
+        "pretrain": {"steps": PRETRAIN_STEPS, "batch": 64, "crop": 128,
+                     "eval_crop_acc": meta["eval_crop_acc"],
+                     "first_loss": losses[0], "last_loss": losses[-1],
+                     **{k: timing[k] for k in ("train_s", "ms_per_step",
+                                               "crops_per_s",
+                                               "crop_share")}},
+        "trunk_tree_equal": True,
+        "driver_s": driver_s,
+        "rows": {fam: {k: rows[fam].get(k) for k in
+                       ("mAP@0.5", "mAP@[.5:.95]", "train_steps",
+                        "train_min")} for fam in DRIVER_FAMILIES},
+        "trunk_loaded": True,
+        "eval_s": eval_s, "eval_images_per_s": EVAL_IMAGES / eval_s,
+        "summary": summary, "summaries_equal": True,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.stderr.write(
@@ -4417,6 +4571,13 @@ def main() -> None:
         "card": card, "model": f"FCOS {BACKBONE} FPN", "canvas": CANVAS,
         "batch": TRAIN_BATCH, "bench_steps": BENCH_STEPS,
         "bench_windows": BENCH_WINDOWS, **measured}))
+    torch.cuda.empty_cache()
+
+    pd_counts, pretrain_driver = pretrain_driver_path()
+    log("pretrain_and_detbench_driver " + json.dumps({
+        "card": card, "backbone": "mobilenetv2", "dtype": "bfloat16",
+        "families": DRIVER_FAMILIES, "driver_steps": DRIVER_STEPS,
+        **pretrain_driver}))
 
     by_path = {
         "nms_sweep": {"fcos_serving": counts["nms_sweep"],
@@ -4450,7 +4611,9 @@ def main() -> None:
                           ms_counts["decode"]["dense_nms"],
                       "serving_bench": ms_counts["serving"]["dense_nms"],
                       "serving_bench_nms_work":
-                          ms_counts["serving_nms_work"]["dense_nms"]},
+                          ms_counts["serving_nms_work"]["dense_nms"],
+                      "detbench_driver_centernet_heatmap_evaluation":
+                          pd_counts["dense_nms"]},
         "focal": {"fcos_training": train_counts["focal_fwd"],
                   "centernet_training": cn_train_counts["focal_fwd"],
                   "centernet_s8_training": s8_train_counts["focal_fwd"],
@@ -4486,7 +4649,9 @@ def main() -> None:
                   "profile_step": ms_counts["profile"]["focal_fwd"]},
         "peak": {"centernet_serving": cn_counts["peak"],
                  "centernet_exported_serving":
-                     ex_counts["centernet_heatmap"]["peak"]},
+                     ex_counts["centernet_heatmap"]["peak"],
+                 "detbench_driver_centernet_heatmap_evaluation":
+                     pd_counts["peak"]},
     }
     for name, paths in by_path.items():
         check(all(n > 0 for n in paths.values()),

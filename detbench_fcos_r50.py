@@ -15,7 +15,11 @@ log's losses (total 2.28 at step 100 over 514 positives) is that of
 (its log's command line ends in ``--bf16``).
 
     python3 detbench_fcos_r50.py --out DIR [--max_steps 3000] [--bf16] \
-        [--loss_norm pos|batch] [--grad_clip 16]
+        [--loss_norm pos|batch] [--grad_clip 16] [--trunk T]
+
+``--trunk`` takes another crop-pretrained ResNet-50 trunk (the port's own
+``.npz`` from `detectax_torch.bench.pretrain_backbone --backbone
+resnet50`, or a Flax ``.msgpack``); the TPU row's by default.
 
 Writes ``DIR/result.json`` (the card, the wall times, the losses of every
 display step and the eval summary) and ``DIR/train.log``; the checkpoint
@@ -131,9 +135,11 @@ def main(argv=None):
                    help="bf16 compute (the TPU row's); float32 otherwise")
     p.add_argument("--keep", action="store_true",
                    help="keep the checkpoint and cache directory")
+    p.add_argument("--trunk", default=TRUNK,
+                   help="the crop-pretrained trunk (.npz or Flax .msgpack)")
     args = p.parse_args(argv)
-    if not os.path.exists(TRUNK):
-        raise SystemExit(f"the pretrained trunk {TRUNK} is missing")
+    if not os.path.exists(args.trunk):
+        raise SystemExit(f"the pretrained trunk {args.trunk} is missing")
 
     def train(ckpt, out):
         from detectax_torch.cli import train_fcos
@@ -142,7 +148,7 @@ def main(argv=None):
             "--dataset", "detbench", "--canvas", "384",
             "--batch_size", "16", "--max_steps", str(args.max_steps),
             "--init_lr", "3e-3", "--decay_steps", "3000",
-            "--freeze_bn", "--init_backbone", TRUNK,
+            "--freeze_bn", "--init_backbone", args.trunk,
             "--loss_norm", args.loss_norm,
             "--grad_clip", str(args.grad_clip),
             "--display_step", "100", "--step_save", "1000",
@@ -156,7 +162,7 @@ def main(argv=None):
                               "--coco_metrics"],
                result={"max_steps": args.max_steps,
                        "loss_norm": args.loss_norm,
-                       "grad_clip": args.grad_clip,
+                       "grad_clip": args.grad_clip, "trunk": args.trunk,
                        "dtype": "bfloat16" if args.bf16 else "float32"},
                keep=args.keep)
 

@@ -423,16 +423,16 @@ class FocalBias(nn.Module):
 
 
 def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
-    """Seeded initial weights, the Flax modules' scheme: conv kernels
-    LeCun-normal (variance 1/fan_in), conv biases zero — or the focal prior
-    where the conv is marked ``focal_bias`` — BatchNorm scale one, bias
-    zero, running mean zero, running variance one, a `FocalBias` its
-    initial value. The numbers are drawn on
-    the generator's device and copied to the module's, so a seed gives the
-    same weights wherever the module lies."""
+    """Seeded initial weights, the Flax modules' scheme: conv and dense
+    kernels LeCun-normal (variance 1/fan_in), their biases zero — or the
+    focal prior where the conv is marked ``focal_bias`` — BatchNorm scale
+    one, bias zero, running mean zero, running variance one, a `FocalBias`
+    its initial value. The numbers are drawn on the generator's device and
+    copied to the module's, so a seed gives the same weights wherever the
+    module lies."""
     with torch.no_grad():
         for m in module.modules():
-            if isinstance(m, nn.Conv2d):
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
                 fan_in = m.weight[0].numel()
                 m.weight.copy_(torch.empty(
                     m.weight.shape, device=generator.device,

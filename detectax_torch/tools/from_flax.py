@@ -11,7 +11,8 @@ the mapping is mechanical:
   ``MobileNetV2_0``, ``TinyBackbone_0``) → ``backbone``;
 * conv ``kernel`` HWIO → ``weight`` OIHW (grouped and depthwise kernels are
   ``[kh, kw, in/groups, out]`` in Flax and ``[out, in/groups, kh, kw]`` in
-  torch: the same transpose);
+  torch: the same transpose); a dense ``kernel`` ``[in, out]`` → an
+  ``nn.Linear`` ``weight`` ``[out, in]``;
 * BatchNorm ``scale``/``bias`` → ``weight``/``bias``; ``batch_stats``
   ``mean``/``var`` → ``running_mean``/``running_var``.
 
@@ -83,12 +84,13 @@ def from_flax(params: Mapping, batch_stats: Mapping | None = None,
     for path, value in _flatten(params):
         key = _torch_key(path, _PARAM_LEAVES)
         if path[-1] == "kernel":
-            if value.ndim != 4:
+            if value.ndim not in (2, 4):
                 raise ValueError(
-                    f"{'/'.join(path)}: expected an HWIO conv kernel, got "
-                    f"shape {value.shape}"
+                    f"{'/'.join(path)}: expected an HWIO conv kernel or an "
+                    f"[in, out] dense kernel, got shape {value.shape}"
                 )
-            value = value.transpose(3, 2, 0, 1)
+            value = (value.transpose(3, 2, 0, 1) if value.ndim == 4
+                     else value.T)
         if key in out:
             raise KeyError(f"{'/'.join(path)} maps onto {key} twice")
         out[key] = torch.from_numpy(np.array(value, order="C"))
@@ -145,6 +147,8 @@ def to_flax(model: torch.nn.Module, tensors: Mapping | None = None
             tree = params
             if arr.ndim == 4:
                 name, arr = "kernel", arr.transpose(2, 3, 1, 0)
+            elif arr.ndim == 2:
+                name, arr = "kernel", arr.T
             else:
                 name = "scale"
         elif leaf == "bias":

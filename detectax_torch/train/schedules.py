@@ -6,7 +6,9 @@ plain function of the update count (from 0) that returns a Python float:
 * `exponential_with_floor` — ``max(init * rate^(step/decay_steps), min_lr)``;
 * `piecewise_constant` — step drops at boundaries;
 * `epoch_decay` — ``init * decay^floor(step/steps_per_epoch)``;
-* constant and cosine through `make_schedule`; `with_warmup` on top.
+* constant and cosine through `make_schedule`; `with_warmup` on top;
+* `warmup_cosine_decay` — optax's `warmup_cosine_decay_schedule`, which
+  crop pretraining (`detectax_torch.bench.pretrain_backbone`) takes.
 
 `make_optimizer` builds an `Optimizer`: global-norm clip, then decayed
 weights added to the clipped gradient, then SGD-momentum / Adam / AdamW
@@ -93,6 +95,31 @@ def with_warmup(schedule: Schedule, warmup_steps: int) -> Schedule:
         return schedule(step) * min((step + 1) / warmup_steps, 1.0)
 
     return s
+
+
+def warmup_cosine_decay(init_value: float, peak_value: float,
+                        warmup_steps: int, decay_steps: int,
+                        end_value: float = 0.0) -> Schedule:
+    """optax's `warmup_cosine_decay_schedule`: from ``init_value`` at count
+    0 linearly to ``peak_value`` at ``warmup_steps``, then a cosine over
+    the ``decay_steps - warmup_steps`` counts after it down to
+    ``end_value``, held there. Not `with_warmup` over `cosine_decay`: that
+    one starts at ``peak / warmup_steps`` and decays over the whole span."""
+    span = decay_steps - warmup_steps
+    if span <= 0:
+        raise ValueError(f"decay_steps ({decay_steps}) must exceed "
+                         f"warmup_steps ({warmup_steps})")
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+
+    def schedule(step):
+        if step < warmup_steps:
+            frac = 1.0 - max(step, 0) / warmup_steps
+            return (init_value - peak_value) * frac + peak_value
+        count = min(step - warmup_steps, span)
+        cosine = 0.5 * (1.0 + math.cos(math.pi * count / span))
+        return peak_value * ((1.0 - alpha) * cosine + alpha)
+
+    return schedule
 
 
 def make_schedule(kind: str, **kwargs) -> Schedule:

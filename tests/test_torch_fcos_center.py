@@ -50,6 +50,17 @@ IMG, BATCH = 64, 4
 METRIC_RTOL, SGD_ATOL, ADAM_ATOL = 1e-4, 2e-6, 2e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """torch on one thread: the shapes are tiny, and beside the suite's
+    other workers a pool of threads a process waits on busy cores at every
+    operation (tens of times slower). Yields the count it replaced."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield threads
+    torch.set_num_threads(threads)
+
+
 def _boxes(rng, batch, n, case):
     b = np.zeros((batch, n, 4), np.float32)
     b[..., 0] = rng.uniform(0.05, 0.95, (batch, n))

@@ -13,7 +13,7 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "msgpack",
-             "detectax")
+             "detectax", "benchmarks")
 
 SERVE_ONE_REQUEST = r"""
 import sys
@@ -189,7 +189,9 @@ def test_every_port_module_imports_without_a_build():
                 "cli.convert_coco", "cli.convert_crowdhuman",
                 "data.native_loader", "tools.port_tf_weights", "bench",
                 "bench._common", "bench.train", "bench.decode",
-                "bench.serving", "bench.profile_step"):
+                "bench.serving", "bench.profile_step",
+                "bench.pretrain_backbone", "bench.run_detbench",
+                "bench.merge_eval_into_results"):
         assert f"detectax_torch.{new}" in mods
     # TensorFlow and PIL are imported inside the functions that need them;
     # the native image library is built at first use, as the kernels are
@@ -234,6 +236,10 @@ def _port_sources():
 def test_static_scan_finds_no_forbidden_import():
     files = _port_sources()
     assert len(files) > 30, files
+    for new in ("pretrain_backbone", "run_detbench",
+                "merge_eval_into_results"):
+        assert os.path.join(REPO, "detectax_torch", "bench",
+                            f"{new}.py") in files
     hits = [
         f"{os.path.relpath(path, REPO)}:{line} imports {root}"
         for path in files

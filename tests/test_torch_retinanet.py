@@ -75,6 +75,17 @@ LOSS_RTOL = 1e-5   # as tests/test_torch_losses.py: sums in other orders
 GRAD_RTOL = 5e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """torch on one thread: the shapes are tiny, and beside the suite's
+    other workers a pool of threads a process waits on busy cores at every
+    operation (tens of times slower). Yields the count it replaced."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield threads
+    torch.set_num_threads(threads)
+
+
 def _np(tree):
     return jax.tree.map(np.asarray, jax.device_get(tree))
 
