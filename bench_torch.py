@@ -29,33 +29,13 @@ branch.
 """
 from __future__ import annotations
 
-import contextlib
 import json
 import os
 import sys
 
 from detectax_torch import runtime
 from detectax_torch.bench import _common, decode, train
-
-
-@contextlib.contextmanager
-def bn_stat_subset(value: str):
-    """``DETECTAX_BN_STAT_SUBSET`` set to ``value`` inside, restored after:
-    BatchNorm reads it at every training forward."""
-    old = os.environ.get("DETECTAX_BN_STAT_SUBSET")
-    os.environ["DETECTAX_BN_STAT_SUBSET"] = value
-    try:
-        yield
-    finally:
-        if old is None:
-            del os.environ["DETECTAX_BN_STAT_SUBSET"]
-        else:
-            os.environ["DETECTAX_BN_STAT_SUBSET"] = old
-
-
-def emit(line: dict) -> dict:
-    print(json.dumps(line), flush=True)
-    return line
+from detectax_torch.bench._common import emit
 
 
 def bench_train(img: int, batch: int, steps: int, windows: int,
@@ -66,7 +46,8 @@ def bench_train(img: int, batch: int, steps: int, windows: int,
     args = (img, batch, steps, windows, backbone)
     lines = [emit(train.train_line(name, *args))]
     if best_config:
-        with bn_stat_subset("4"):
+        # BatchNorm reads the switch at every training forward
+        with _common.scoped_env({"DETECTAX_BN_STAT_SUBSET": "4"}):
             lines.append(emit(train.train_line(
                 name + "_bnsubset4", *args,
                 note="best-known live-stats config "

@@ -213,7 +213,34 @@ order:
    centernet_heatmap row's evaluation in this process on the kernels and
    on their plain versions (summaries equal, one `dense_nms` and one
    `peak` launch a batch, exactly);
-17. prints one JSON line ``{"kernels": [...]}`` and, last, the ``ok`` line.
+17. the space-to-depth stem and the last measurement programs: the
+   stem's two evaluations at the flagship's input (`ConvBN(s2d=True)`
+   against its plain evaluation, fp32 to 1e-4 of the output's largest
+   magnitude with TF32 off, bf16 within twice the plain stem's own bf16
+   error plus 1e-3, both BatchNorm modes; one fp32 FCOS-R50 step with
+   ``DETECTAX_S2D_STEM=1`` against the plain stem's from the same state,
+   ``total`` to 1e-4; the stem's bf16 forward + backward timed both
+   ways); the grouped focal kernel against its plain version at the level
+   maps the programs train at besides 384 px and batch 16 (512 and 640 px
+   at batch 16, 384 px at batch 32; `check_focal_group`'s tolerances);
+   then in this process, at full width (FCOS-R50, 384 px, batch
+   16, bf16): `detectax_torch.bench.mfu_breakdown` ``--only phases`` (4
+   steps in 2 windows: the seven rows, every graph's ms above 0,
+   ``0 < mfu_pct <= 100`` but on the assignment, which counts 0
+   operations, full step >= grad >= forward+loss within the windows'
+   spread), ``--only canvas`` and ``--only levers`` (2 steps an arm),
+   `config_frontier` (all eight arms), `s2d_ab` and `pool_ab` (2 steps an
+   arm; their switches restored; the s2d arm's own count above the plain
+   stem's), `latency_reconcile` (three protocols finite and above 0, one
+   application's detections equal to the plain version's exactly, the
+   CUDA graph holding 50 `dense_nms` launches, counted at capture, and
+   its replay's sum that of 50 applications) and `diag_export` on the
+   checkpoint of 2 steps of `cli.train_fcos` for a MobileNetV2 FCOS at
+   384 px, then on its weights with the class heads' bias raised
+   (``num_valid`` equal live and replayed, the dense outputs to 1e-4);
+   every program's kernel launches exactly as its graphs call them;
+18. prints the seconds each phase took (``phase_seconds``), one JSON line
+   ``{"kernels": [...]}`` and, last, the ``ok`` line.
 
 It imports `detectax_torch` only — nothing of JAX or of `detectax`.
 """
@@ -818,13 +845,15 @@ FOCAL_GROUP_CASES = ("levels", "levels_and_centerness", "one_segment",
                      "one_element", "zero_rows", "mixed_weights", "extreme")
 
 
-def focal_group_segments(rng, case):
+def focal_group_segments(rng, case, *, levels=FOCAL_LEVELS,
+                         batch=FOCAL_BATCH):
     """Segments of one `focal_loss_group` call, as the training path hands
     them over where it can: "levels" the class channels ``y[..., 5:]`` of
-    the five FCOS level maps ``[16, h, h, 25]`` (strided views), read in
-    place; "levels_and_centerness" those and the five centerness maps
-    ``y[..., 4]`` (ten segments, as under cen_type="focal"); "one_segment"
-    one contiguous ``[16, 48, 48, 20]``; "one_element" a level and a
+    the five FCOS level maps ``[batch, h, h, 25]`` (``h`` over
+    ``levels``; strided views), read in place; "levels_and_centerness"
+    those and the five centerness maps ``y[..., 4]`` (ten segments, as
+    under cen_type="focal"); "one_segment" one contiguous ``[16, 48, 48,
+    20]``; "one_element" a level and a
     segment of one element; "zero_rows" a segment of no rows between two
     levels; "mixed_weights" the five levels, every other one with a 0/1
     mask; "extreme" the five levels with logits in {-100, -40, 0, 40,
@@ -832,7 +861,7 @@ def focal_group_segments(rng, case):
     the logits that take a gradient (leaf tensors, strided where the
     segment is)."""
     def level(hw, extreme=False):
-        shape = (FOCAL_BATCH, hw, hw, 5 + NUM_CLASSES)
+        shape = (batch, hw, hw, 5 + NUM_CLASSES)
         labels = (rng.uniform(size=shape) < 0.01).astype(np.float32)
         if extreme:
             logits = rng.choice(
@@ -848,7 +877,7 @@ def focal_group_segments(rng, case):
                        .astype(np.float32)))]
         weights = [None]
     else:
-        maps = [level(hw, extreme=case == "extreme") for hw in FOCAL_LEVELS]
+        maps = [level(hw, extreme=case == "extreme") for hw in levels]
         pairs = [(z[..., 5:], x[..., 5:]) for z, x in maps]
         if case == "levels_and_centerness":
             pairs += [(z[..., 4], x[..., 4]) for z, x in maps]
@@ -868,15 +897,18 @@ def focal_group_segments(rng, case):
     return segs, xs
 
 
-def check_focal_group(rng, case, *, timed=False):
+def check_focal_group(rng, case, *, timed=False, levels=FOCAL_LEVELS,
+                      batch=FOCAL_BATCH):
     """`focal_loss_group` against its plain version segment by segment:
     each sum to FOCAL_SUM_RTOL, each segment's dlogits (the upstream
     gradient differing by segment) to FOCAL_GRAD_ATOL, one forward and one
     backward launch, two runs bitwise equal. Timed: the grouped call, and
     five single `focal_loss` calls on the same segments, queued behind a
-    blocker."""
-    segs, xs = focal_group_segments(rng, case)
-    name = f"focal_loss_group {case} ({len(segs)} segments)"
+    blocker. ``levels`` and ``batch``: the FCOS level maps' sides and
+    batch (`focal_group_segments`)."""
+    segs, xs = focal_group_segments(rng, case, levels=levels, batch=batch)
+    name = (f"focal_loss_group {case} ({len(segs)} segments, batch "
+            f"{batch}, levels {levels})")
     upstream = torch.linspace(0.5, 2.0, len(segs), device=DEV)
 
     def run(group):
@@ -4325,12 +4357,369 @@ def pretrain_driver_path() -> tuple[dict, dict]:
     }
 
 
+# --------------------------------------------------------------------------
+# phase 17: the space-to-depth stem and the last measurement programs
+# (mfu_breakdown, config_frontier, s2d_ab, pool_ab, latency_reconcile,
+# diag_export)
+# --------------------------------------------------------------------------
+
+S2D_RTOL = 1e-4    # of the output's largest magnitude (fp32, TF32 off);
+                   # the step's loss, relative
+S2D_TIME_REPS = 20
+LEVER_PHASE_STEPS, LEVER_PHASE_WINDOWS = 4, 2   # mfu_breakdown --only phases
+LEVER_STEPS, LEVER_WINDOWS = 2, 2   # every other lever program's arms
+DIAG_STEPS, DIAG_CLASSES = 2, 3     # cli.train_fcos; the synthetic classes
+DIAG_DENSE_ATOL = 1e-4
+FCOS_STRIDES = (8, 16, 32, 64, 128)
+LEVER_TRAINING_PARTS = ("mfu_phases", "mfu_canvas", "mfu_levers",
+                        "config_frontier", "s2d_ab", "pool_ab")
+
+
+def s2d_stem_checks() -> dict:
+    """The stem's two evaluations on the card at the flagship's input
+    (batch 16, 384 px): `ConvBN(s2d=True)` against its own plain
+    evaluation in float32 (TF32 off) to `S2D_RTOL` of the output's largest
+    magnitude, in both BatchNorm modes; in bf16 within the CPU tests'
+    bound, ``max|s2d - plain| <= 2 * max|plain_bf16 - plain_fp32| +
+    1e-3``; one fp32 step of FCOS-R50 with ``DETECTAX_S2D_STEM=1`` against
+    the same step with the plain stem from the same state (``total`` to
+    `S2D_RTOL`, relative); and the stem's bf16 forward + backward (the
+    weight gradients, as in training: the image needs none) timed by CUDA
+    events in both evaluations."""
+    from detectax_torch.bench import train as bench_train
+    from detectax_torch.bench._common import scoped_env
+    from detectax_torch.models.layers import ConvBN, init_parameters
+
+    out = {}
+    x = torch.from_numpy(bench_train.train_batch(CANVAS, TRAIN_BATCH)[
+        "images"]).to(DEV).permute(0, 3, 1, 2)
+    outs = {}
+    for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        stem = ConvBN(3, 64, kernel=7, stride=2, s2d=True, dtype=dtype)
+        init_parameters(stem, torch.Generator().manual_seed(SEED + 17))
+        stem = stem.to(DEV)
+        for train in (False, True):
+            with torch.no_grad():
+                outs[name, train] = {
+                    s2d: stem(x, train, s2d=s2d).float() for s2d in
+                    (True, False)}
+        if name == "bf16":
+            timed = {}
+            for s2d in (True, False):
+                def fwd_bwd(s2d=s2d):
+                    stem(x, True, s2d=s2d).float().sum().backward()
+                timed[s2d] = time_ms(fwd_bwd, warmup=3, reps=S2D_TIME_REPS)
+            out["stem_bf16_fwd_bwd_ms"] = {"s2d": timed[True],
+                                           "plain": timed[False]}
+            log(f"s2d stem, bf16 forward + backward at [{TRAIN_BATCH}, 3, "
+                f"{CANVAS}, {CANVAS}]: s2d {timed[True]:.4f} ms, plain "
+                f"{timed[False]:.4f} ms")
+        del stem
+    for train in (False, True):
+        got, want = outs["fp32", train][True], outs["fp32", train][False]
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        check(err <= S2D_RTOL * scale, f"s2d stem fp32 (train={train}): "
+              f"{err} against {S2D_RTOL} of {scale}")
+        b16 = outs["bf16", train]
+        err16 = float((b16[True] - b16[False]).abs().max())
+        bound = 2 * float((b16[False] - want).abs().max()) + 1e-3
+        check(err16 <= bound, f"s2d stem bf16 (train={train}): {err16} "
+              f"over the bound {bound}")
+        out[f"fp32_train_{train}"] = {"max_abs_err": err, "scale": scale}
+        out[f"bf16_train_{train}"] = {"max_abs_err": err16, "bound": bound}
+    del outs, x
+    # one fp32 step of the full model, the same seeded state, each
+    # evaluation
+    totals = {}
+    for s2d in (True, False):
+        with scoped_env({"DETECTAX_S2D_STEM": "1" if s2d else "0"}):
+            parts, state, data = bench_train.build(
+                CANVAS, TRAIN_BATCH, BACKBONE, device=DEV,
+                dtype=torch.float32)
+            _, metrics = parts.raw_step(state, data)
+            totals[s2d] = {k: float(metrics[k])
+                           for k in ("total", "grad_norm")}
+        del parts, state, data
+        torch.cuda.empty_cache()
+    check(close(totals[True]["total"], totals[False]["total"], S2D_RTOL),
+          f"FCOS-R50 fp32 step, s2d stem against plain: {totals}")
+    out["fcos_r50_fp32_step"] = {"s2d": totals[True], "plain": totals[False]}
+    return out
+
+
+def check_focal_lever_shapes(canvases, batches) -> list:
+    """The grouped focal kernel against its plain version
+    (`check_focal_group`, case "levels") at each (canvas, batch) the lever
+    programs train at besides the kernels phase's 384 px and batch 16:
+    every canvas at batch 16, every batch at 384 px."""
+    rng = np.random.default_rng(SEED + 18)
+    shapes = sorted(({(c, FOCAL_BATCH) for c in canvases}
+                     | {(CANVAS, b) for b in batches})
+                    - {(CANVAS, FOCAL_BATCH)})
+    rows = []
+    for canvas, batch in shapes:
+        levels = tuple(canvas // s for s in FCOS_STRIDES)
+        row = check_focal_group(rng, "levels", levels=levels, batch=batch)
+        rows.append({"canvas": canvas, "batch": batch, **row})
+        log(f"focal_loss_group at {canvas} px, batch {batch}: "
+            f"{json.dumps(rows[-1])}")
+    return rows
+
+
+def lever_rows(line: dict, prefix: str) -> dict:
+    """The rows of a program's summary line, under its JAX key."""
+    keys = [k for k in line if k.startswith(prefix)]
+    check(len(keys) == 1, f"no single {prefix}* key in {sorted(line)}")
+    return line[keys[0]]
+
+
+def check_step_rows(what: str, rows: dict, names):
+    check(list(rows) == list(names), f"{what}: arms {list(rows)}")
+    for name, row in rows.items():
+        check("error" not in row and row["ms_per_step"] > 0
+              and np.isfinite(row["img_per_sec"])
+              and 0 < row["mfu_pct"] <= 100,
+              f"{what} {name}: {row}")
+
+
+def lever_programs_path() -> tuple[dict, dict]:
+    """The stem's checks (`s2d_stem_checks`) and the grouped focal kernel
+    against its plain version at the programs' other training shapes
+    (`check_focal_lever_shapes`); then each program in this process at few
+    steps and full width (FCOS-R50, 384 px, batch 16, bf16), its launch
+    counts set to 0 just before it and read just after (each a step of
+    its graphs launches focal once each way; each decode + NMS
+    `dense_nms` once). Returns (counts a program, the numbers)."""
+    import argparse
+
+    from detectax_torch.bench import (
+        config_frontier,
+        diag_export,
+        latency_reconcile,
+        mfu_breakdown,
+        pool_ab,
+        s2d_ab,
+    )
+    from detectax_torch.bench import decode as bench_decode
+    from detectax_torch.cli import train_fcos
+    from detectax_torch.tools.from_flax import save_npz, to_flax
+
+    t_phase = time.perf_counter()
+    out, counts = {}, {}
+    out["s2d_stem"] = s2d_stem_checks()
+    out["s2d_stem_s"] = time.perf_counter() - t_phase
+    # comparisons, made before the counts are set to 0
+    out["focal_lever_shapes"] = check_focal_lever_shapes(
+        mfu_breakdown.CANVASES, [c[3] for c in config_frontier.CONFIGS])
+
+    def ns(steps, windows, only=None):
+        return argparse.Namespace(steps=steps, windows=windows, only=only)
+
+    # a graph's calls: 2 warm-up, the windows', 1 counted
+    calls = 2 + LEVER_PHASE_WINDOWS * (LEVER_PHASE_STEPS
+                                       // LEVER_PHASE_WINDOWS) + 1
+    arm_calls = 2 + LEVER_WINDOWS * (LEVER_STEPS // LEVER_WINDOWS) + 1
+
+    kcommon.reset_launch_counts()
+    t0 = time.perf_counter()
+    lines = mfu_breakdown.run(ns(LEVER_PHASE_STEPS, LEVER_PHASE_WINDOWS,
+                                 "phases"), DEV)
+    counts["mfu_phases"] = kcommon.launch_counts()
+    phases = lines["phases"]
+    rows = lever_rows(phases, "phase_breakdown_")
+    graphs = ["assign", "forward", "forward+loss", "grad(fwd+bwd)",
+              "full step"]
+    check(list(rows) == graphs + ["backward (grad - fwd+loss)",
+                                  "update (full - grad)"],
+          f"mfu_breakdown phases: rows {list(rows)}")
+    for name in graphs:
+        check(rows[name]["ms"] > 0, f"phase {name}: {rows[name]}")
+    # the assignment has no convolution or matmul: FlopCounterMode counts 0
+    check(rows["assign"]["tflops"] == 0 and rows["assign"]["mfu_pct"] == 0,
+          f"phase assign: {rows['assign']}")
+    for name in graphs[1:]:
+        check(0 < rows[name]["mfu_pct"] <= 100, f"phase {name}: "
+              f"{rows[name]}")
+    win = phases["window_ms"]
+    spread = max(max(w) - min(w) for w in win.values())
+    for hi, lo in (("full step", "grad(fwd+bwd)"),
+                   ("grad(fwd+bwd)", "forward+loss")):
+        check(rows[hi]["ms"] >= rows[lo]["ms"] - spread,
+              f"phase {hi} {rows[hi]['ms']} ms under {lo} {rows[lo]['ms']}"
+              f" by more than the windows' spread {spread}")
+    check(rows["backward (grad - fwd+loss)"]["ms"] == round(
+        rows["grad(fwd+bwd)"]["ms"] - rows["forward+loss"]["ms"], 2)
+        and rows["update (full - grad)"]["ms"] == round(
+        rows["full step"]["ms"] - rows["grad(fwd+bwd)"]["ms"], 2),
+        f"derived phase rows: {rows}")
+    check(counts["mfu_phases"] == {"focal_fwd": 3 * calls,
+                                   "focal_bwd": 2 * calls},
+          f"mfu_breakdown phases launched {counts['mfu_phases']}")
+    out["mfu_phases"] = {"rows": rows, "window_ms": win,
+                         "s": time.perf_counter() - t0}
+    torch.cuda.empty_cache()
+
+    for part, names in (("canvas", [f"{c}px" for c in
+                                    mfu_breakdown.CANVASES]),
+                        ("levers", list(mfu_breakdown.LEVERS))):
+        kcommon.reset_launch_counts()
+        t0 = time.perf_counter()
+        line = mfu_breakdown.run(ns(LEVER_STEPS, LEVER_WINDOWS, part),
+                                 DEV)[part]
+        counts[f"mfu_{part}"] = kcommon.launch_counts()
+        prefix = ("canvas_sweep_" if part == "canvas"
+                  else "compiler_levers_")
+        rows = lever_rows(line, prefix)
+        check_step_rows(f"mfu_breakdown {part}", rows, names)
+        n = len(names) * arm_calls
+        check(counts[f"mfu_{part}"] == {"focal_fwd": n, "focal_bwd": n},
+              f"mfu_breakdown {part} launched {counts[f'mfu_{part}']}")
+        out[f"mfu_{part}"] = {"rows": rows, "window_ms": line["window_ms"],
+                              "s": time.perf_counter() - t0}
+        torch.cuda.empty_cache()
+    check(not torch.backends.cudnn.benchmark,
+          "the cudnn_benchmark lever was left on")
+
+    kcommon.reset_launch_counts()
+    t0 = time.perf_counter()
+    line = config_frontier.run(ns(LEVER_STEPS, LEVER_WINDOWS), DEV)
+    counts["config_frontier"] = kcommon.launch_counts()
+    labels = [c[0] for c in config_frontier.CONFIGS]
+    rows = line["config_frontier_fcos_r50_384"]
+    check_step_rows("config_frontier", rows, labels)
+    for label, env, freeze_bn, batch in config_frontier.CONFIGS:
+        check(rows[label]["config"] == label
+              and rows[label]["batch"] == batch,
+              f"config_frontier {label}: {rows[label]}")
+    check(not any(k in os.environ for k in config_frontier.ENV_KEYS),
+          "config_frontier left its environment set")
+    n = len(labels) * arm_calls
+    check(counts["config_frontier"] == {"focal_fwd": n, "focal_bwd": n},
+          f"config_frontier launched {counts['config_frontier']}")
+    out["config_frontier"] = {"rows": rows, "window_ms": line["window_ms"],
+                              "s": time.perf_counter() - t0}
+
+    arms = ["base", "{}", "base+freeze_bn", "{}+freeze_bn"]
+    for name, prog, key, lever in (
+            ("s2d_ab", s2d_ab, "s2d_ab_fcos_r50_384_b16", "s2d"),
+            ("pool_ab", pool_ab, "pool_ab_fcos_r50_384_b16", "pool")):
+        kcommon.reset_launch_counts()
+        t0 = time.perf_counter()
+        line = prog.run(ns(LEVER_STEPS, LEVER_WINDOWS), DEV)
+        counts[name] = kcommon.launch_counts()
+        rows = line[key]
+        check_step_rows(name, rows, [a.format(lever) for a in arms])
+        check(prog.ENV_KEY not in os.environ, f"{name} left its switch set")
+        # s2d_ab counts each arm's step twice (its own and the plain stem's)
+        n = 4 * (arm_calls + (name == "s2d_ab"))
+        check(counts[name] == {"focal_fwd": n, "focal_bwd": n},
+              f"{name} launched {counts[name]}")
+        out[name] = {"rows": rows, "window_ms": line["window_ms"],
+                     "s": time.perf_counter() - t0}
+    s2d_rows = out["s2d_ab"]["rows"]
+    check(s2d_rows["s2d"]["arm_step_tflops"]
+          > s2d_rows["base"]["arm_step_tflops"],
+          f"s2d_ab: the s2d arm's own count is not above the plain one's: "
+          f"{s2d_rows}")
+    torch.cuda.empty_cache()
+
+    kcommon.reset_launch_counts()
+    t0 = time.perf_counter()
+    p = latency_reconcile.protocols(DEV)
+    counts["latency_reconcile"] = kcommon.launch_counts()
+    line = latency_reconcile.reconcile_line(p, DEV)
+    for key in ("dispatch_only_ms", "amortized_fetch_ms",
+                "device_chained_ms"):
+        check(np.isfinite(p[key]) and p[key] > 0,
+              f"latency_reconcile {key}: {p[key]}")
+    outs = [cuda(o) for o in bench_decode.decode_inputs()]
+    with torch.no_grad():
+        exact_detections("latency_reconcile application", p["detections"],
+                         bench_decode.decode_and_nms(outs, kernels="plain"))
+    inner = latency_reconcile.INNER
+    check(p["graph_dense_nms_launches_at_capture"] == inner,
+          f"the graph holds {p['graph_dense_nms_launches_at_capture']} "
+          f"dense_nms launches, expected {inner}")
+    want_sum = inner * float(p["detections"]["scores"].sum())
+    check(abs(p["graph_scores_sum"] - want_sum) <= 1e-5 * want_sum,
+          f"the graph's replay summed {p['graph_scores_sum']}, {inner} "
+          f"applications {want_sum}")
+    iters, reps = latency_reconcile.ITERS, latency_reconcile.REPEATS
+    n = 1 + iters + reps * iters + 1 + inner
+    check(counts["latency_reconcile"] == {"dense_nms": n},
+          f"latency_reconcile launched {counts['latency_reconcile']}, "
+          f"expected {n} (the graph's at capture)")
+    out["latency_reconcile"] = {**line, "graph_scores_sum":
+                                p["graph_scores_sum"],
+                                "s": time.perf_counter() - t0}
+    del outs, p
+    torch.cuda.empty_cache()
+
+    # diag_export on a checkpoint of 2 steps of cli.train_fcos (MobileNetV2
+    # FCOS, 384 px), then on the same weights with the class heads' bias
+    # raised so that the serving graph keeps detections
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "ckpt")
+        summary = train_fcos.main([
+            "--backbone", "mobilenetv2", "--canvas", str(CANVAS),
+            "--batch_size", str(TRAIN_BATCH), "--max_steps",
+            str(DIAG_STEPS), "--display_step", "1", "--step_save",
+            str(DIAG_STEPS), "--synthetic_n", "32", "--ckpt_dir", ckpt,
+            "--out_dir", os.path.join(tmp, "out")])
+        check(summary["final_step"] == DIAG_STEPS,
+              f"diag_export's checkpoint run: {summary}")
+        argv = ["--backbone", "mobilenetv2", "--num_classes",
+                str(DIAG_CLASSES), "--canvas", str(CANVAS)]
+        reports = {}
+        kcommon.reset_launch_counts()
+        reports["checkpoint"] = diag_export.main(argv + ["--ckpt_dir", ckpt])
+        counts["diag_export"] = kcommon.launch_counts()
+        model, _ = diag_export.load_model(
+            diag_export.parse_args(argv + ["--ckpt_dir", ckpt]), DEV)
+        with torch.no_grad():
+            for i in range(1, 6):
+                getattr(model, f"cls_head_{i}").Conv_0.bias.fill_(
+                    CLS_HEAD_BIAS)
+        weights = os.path.join(tmp, "raised.npz")
+        save_npz(weights, *to_flax(model))
+        del model
+        reports["raised_bias"] = diag_export.main(argv + ["--weights",
+                                                          weights])
+    for name, rep in reports.items():
+        nv = rep["serving: num_valid (eager/replay)"]
+        check(nv[0] == nv[1], f"diag_export {name}: num_valid {nv}")
+        dense = rep["dense: replay_vs_eager"]
+        check(max(dense.values()) <= DIAG_DENSE_ATOL,
+              f"diag_export {name}: dense replay against eager {dense}")
+    check(min(reports["raised_bias"][
+        "serving: num_valid (eager/replay)"]) > 0,
+        "diag_export with the class heads' bias raised kept no detection")
+    # one live serving call and one replay a report
+    check(counts["diag_export"] == {"dense_nms": 2},
+          f"diag_export launched {counts['diag_export']}")
+    out["diag_export"] = {**reports, "s": time.perf_counter() - t0}
+    out["phase_s"] = time.perf_counter() - t_phase
+    torch.cuda.empty_cache()
+    return counts, out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.stderr.write(
             "chip_smoke.py needs a CUDA device; none is available\n")
         sys.exit(1)
     t_start = time.perf_counter()
+    # seconds a phase, each from the end of the one before; printed at the
+    # end to show which phases use the run's time
+    phase_s, t_mark = {}, [t_start]
+
+    def done(phase: str) -> None:
+        now = time.perf_counter()
+        phase_s[phase] = round(now - t_mark[0], 1)
+        t_mark[0] = now
+
     kind = torch.cuda.get_device_name(0)
     card = runtime.card_name_and_power()
     log(f"device: {kind} | torch {torch.__version__} cuda {torch.version.cuda}")
@@ -4455,6 +4844,7 @@ def main() -> None:
     log(f"kernel peak: {len(peak)} shape/case/mode combinations held; "
         f"peak_scores decisions differing within {PEAK_TIE_ULPS} ulp: "
         f"{sum(r['decisions_differing'] for r in peak)}")
+    done("build_and_kernels")
 
     counts, serving, stages = main_path()
     log("serving " + json.dumps({"card": card, "model": f"FCOS {BACKBONE} FPN",
@@ -4462,12 +4852,14 @@ def main() -> None:
                                  "buckets": BUCKETS, "requests": REQUESTS,
                                  "paths": serving,
                                  "stage_ms": stages}))
+    done("serving")
 
     train_counts, training = train_path()
     log("training " + json.dumps({
         "card": card, "model": f"FCOS {BACKBONE} FPN", "canvas": CANVAS,
         "dtype": "float32", "classes": NUM_CLASSES, **training}))
     log("cli " + json.dumps(cli_path(ckpts.name)))
+    done("training_and_cli")
 
     cn_counts, cn_serving, cn_stages = centernet_serving_path()
     log("centernet_serving " + json.dumps({
@@ -4485,13 +4877,16 @@ def main() -> None:
         "card": card, "model": f"CenterNetS8 {BACKBONE}", "dtype": "float32",
         "classes": NUM_CLASSES, **s8_training}))
     log("centernet_s8_cli " + json.dumps(s8_cli_path()))
+    done("centernet")
     db_counts, detbench = detbench_path()
     log("detbench " + json.dumps({"card": card, "model": f"FCOS {BACKBONE} "
                                   "FPN", "canvas": CANVAS, **detbench}))
+    done("detbench")
     center_counts, center = center_paths()
     log("fcos_center " + json.dumps({"card": card, "canvas": CANVAS,
                                      "classes": NUM_CLASSES, **center}))
     torch.cuda.empty_cache()
+    done("fcos_center")
 
     rn_counts, rn_serving = retinanet_serving_path()
     log("retinanet_serving " + json.dumps({
@@ -4513,6 +4908,7 @@ def main() -> None:
         "card": card, "model": "RetinaNet mobilenetv2", "canvas": RN_CANVAS,
         "dtype": "bfloat16", **rn_detbench}))
     torch.cuda.empty_cache()
+    done("retinanet")
     bf16_counts, rn_bf16_counts, bf16 = bf16_train_path(
         training["step_ms"], rn_training["step_ms"])
     log("bf16_training " + json.dumps({
@@ -4520,6 +4916,7 @@ def main() -> None:
         "retinanet": f"RetinaNet {RN_BACKBONE}, {RN_CANVAS} px",
         "dtype": "bfloat16", "batch": TRAIN_BATCH, **bf16}))
     torch.cuda.empty_cache()
+    done("bf16_training")
 
     t_hg = time.perf_counter()
     hg_counts, hg_serving = hourglass_serving_path()
@@ -4542,6 +4939,7 @@ def main() -> None:
         "canvas": HG_CANVAS, "dtype": "bfloat16", **hg_detbench}))
     log(f"hourglass phase took {time.perf_counter() - t_hg:.1f} s")
     torch.cuda.empty_cache()
+    done("hourglass")
 
     t_export = time.perf_counter()
     ex_counts, exported = export_path(ckpts.name)
@@ -4550,6 +4948,7 @@ def main() -> None:
         "card": card, "buckets": BUCKETS, "requests": REQUESTS,
         "dtype": "float32", "phase_s": export_s, "bundles": exported}))
     torch.cuda.empty_cache()
+    done("export")
 
     t_dp = time.perf_counter()
     dp_counts, parallel = parallel_path(ckpts.name, training)
@@ -4559,12 +4958,14 @@ def main() -> None:
         "phase_s": time.perf_counter() - t_dp, **parallel}))
     ckpts.cleanup()
     torch.cuda.empty_cache()
+    done("parallel")
 
     in_counts, ingestion = ingestion_path()
     log("ingestion " + json.dumps({
         "card": card, "model": f"FCOS {BACKBONE} FPN", "canvas": CANVAS,
         "classes": NUM_CLASSES, "batch": TRAIN_BATCH, **ingestion}))
     torch.cuda.empty_cache()
+    done("ingestion")
 
     ms_counts, measured = measurement_path()
     log("measurement_programs " + json.dumps({
@@ -4572,12 +4973,24 @@ def main() -> None:
         "batch": TRAIN_BATCH, "bench_steps": BENCH_STEPS,
         "bench_windows": BENCH_WINDOWS, **measured}))
     torch.cuda.empty_cache()
+    done("measurement_programs")
 
     pd_counts, pretrain_driver = pretrain_driver_path()
     log("pretrain_and_detbench_driver " + json.dumps({
         "card": card, "backbone": "mobilenetv2", "dtype": "bfloat16",
         "families": DRIVER_FAMILIES, "driver_steps": DRIVER_STEPS,
         **pretrain_driver}))
+    torch.cuda.empty_cache()
+    done("pretrain_and_detbench_driver")
+
+    lv_counts, lever_programs = lever_programs_path()
+    log("s2d_stem_and_lever_programs " + json.dumps({
+        "card": card, "model": f"FCOS {BACKBONE} FPN", "canvas": CANVAS,
+        "batch": TRAIN_BATCH, "dtype": "bfloat16",
+        "phase_steps": [LEVER_PHASE_STEPS, LEVER_PHASE_WINDOWS],
+        "arm_steps": [LEVER_STEPS, LEVER_WINDOWS], **lever_programs},
+        default=str))
+    done("s2d_stem_and_lever_programs")
 
     by_path = {
         "nms_sweep": {"fcos_serving": counts["nms_sweep"],
@@ -4613,7 +5026,10 @@ def main() -> None:
                       "serving_bench_nms_work":
                           ms_counts["serving_nms_work"]["dense_nms"],
                       "detbench_driver_centernet_heatmap_evaluation":
-                          pd_counts["dense_nms"]},
+                          pd_counts["dense_nms"],
+                      "latency_reconcile":
+                          lv_counts["latency_reconcile"]["dense_nms"],
+                      "diag_export": lv_counts["diag_export"]["dense_nms"]},
         "focal": {"fcos_training": train_counts["focal_fwd"],
                   "centernet_training": cn_train_counts["focal_fwd"],
                   "centernet_s8_training": s8_train_counts["focal_fwd"],
@@ -4646,7 +5062,9 @@ def main() -> None:
                       in_counts["train"]["focal_fwd"],
                   "bench_torch_training_lines":
                       ms_counts["train"]["focal_fwd"],
-                  "profile_step": ms_counts["profile"]["focal_fwd"]},
+                  "profile_step": ms_counts["profile"]["focal_fwd"],
+                  **{f"lever_program_{k}": lv_counts[k]["focal_fwd"]
+                     for k in LEVER_TRAINING_PARTS}},
         "peak": {"centernet_serving": cn_counts["peak"],
                  "centernet_exported_serving":
                      ex_counts["centernet_heatmap"]["peak"],
@@ -4680,7 +5098,9 @@ def main() -> None:
                                       for c in dp_counts["gloo_fsdp"])
                                 + in_counts["train"]["focal_bwd"]
                                 + ms_counts["train"]["focal_bwd"]
-                                + ms_counts["profile"]["focal_bwd"])
+                                + ms_counts["profile"]["focal_bwd"]
+                                + sum(lv_counts[k]["focal_bwd"]
+                                      for k in LEVER_TRAINING_PARTS))
     # the five levels: one grouped call (what training runs), and beside it
     # the five single calls of the per-level rows
     levels, grouped = focal[:len(FOCAL_LEVELS)], groups[0]
@@ -4714,6 +5134,8 @@ def main() -> None:
             "launches_by_path": by_path[name],
             **rows[0], "other_shapes": rows[1:],
         })
+    done("kernels_line")
+    log("phase_seconds " + json.dumps(phase_s))
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels, "launch_floor_ms": launch_floor,
                     "bound_note": BOUND_NOTE}))

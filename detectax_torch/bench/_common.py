@@ -1,8 +1,12 @@
 """What the measurement programs share: the device check that starts
 them, the synchronise that closes a timed window, the label of the device
-a line ran on and the kernel launches counted since a point."""
+a line ran on, the kernel launches counted since a point, a line printed
+and the environment an arm runs under."""
 from __future__ import annotations
 
+import contextlib
+import json
+import os
 import sys
 
 import torch
@@ -50,3 +54,29 @@ def launches_since(before: dict) -> dict:
     now = kcommon.launch_counts()
     return {k: n - before.get(k, 0) for k, n in now.items()
             if n != before.get(k, 0)}
+
+
+def emit(line: dict) -> dict:
+    """Print ``line`` as one JSON line, at once."""
+    print(json.dumps(line), flush=True)
+    return line
+
+
+@contextlib.contextmanager
+def scoped_env(env: dict, clear=()):
+    """``env`` set, and the ``clear`` keys unset, inside; every key as it
+    was after (the programs also run inside `chip_smoke.py`, whose later
+    phases must not see an arm's switches)."""
+    keys = set(env) | set(clear)
+    old = {k: os.environ.get(k) for k in keys}
+    for k in clear:
+        os.environ.pop(k, None)
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v

@@ -66,11 +66,20 @@ class TrainSetup(NamedTuple):
     batch: dict            # the synthetic batch, on the model's device
 
 
-def train_batch(img: int, batch: int) -> dict:
-    """`bench.py::_train_batch`'s arrays, as numpy: ``default_rng(0)``, 16
-    boxes an image around the centre (yxhw, normalised), normal images,
-    labels over the 20 classes, all valid; the same draws in the same
-    order."""
+class Parts(NamedTuple):
+    """The pieces of the flagship step (`benchmarks/mfu_breakdown.py::
+    build`'s ``parts``), from which the lever programs make their graphs."""
+    model: torch.nn.Module
+    assign_fn: Callable    # (boxes, labels, valid) -> y_true, batched
+    loss: Callable         # (y_true, y_pred) -> dict with "total"
+    raw_step: Callable     # train.loop.make_train_step's step
+
+
+def train_batch(img: int, batch: int, nc: int = NUM_CLASSES) -> dict:
+    """`bench.py::_train_batch`'s arrays (and `benchmarks/mfu_breakdown.py::
+    build`'s), as numpy: ``default_rng(0)``, 16 boxes an image around the
+    centre (yxhw, normalised), normal images, labels over the ``nc``
+    classes, all valid; the same draws in the same order."""
     rng = np.random.default_rng(0)
     boxes = np.zeros((batch, BOXES, 4), np.float32)
     boxes[:, :, 0] = rng.uniform(0.3, 0.7, (batch, BOXES))
@@ -80,18 +89,49 @@ def train_batch(img: int, batch: int) -> dict:
     return {
         "images": rng.normal(size=(batch, img, img, 3)).astype(np.float32),
         "boxes": boxes,
-        "labels": rng.integers(0, NUM_CLASSES, (batch, BOXES))
-        .astype(np.int32),
+        "labels": rng.integers(0, nc, (batch, BOXES)).astype(np.int32),
         "valid": np.ones((batch, BOXES), bool),
     }
 
 
-def flagship_assign(img: int) -> Callable:
-    """The step's target assignment: five FCOS levels of an ``img`` canvas."""
+def flagship_assign(img: int, nc: int = NUM_CLASSES) -> Callable:
+    """The step's target assignment: five FCOS levels of an ``img``
+    canvas, ``nc`` classes."""
     def assign_fn(boxes, labels, valid):
         return fcos_assign(boxes, labels, valid, img_dim=(img, img),
-                           num_classes=NUM_CLASSES)[0]
+                           num_classes=nc)[0]
     return assign_fn
+
+
+def build(img: int, batch: int, backbone: str = "resnet50",
+          nc: int = NUM_CLASSES, *, freeze_bn: bool = False, device=None,
+          dtype: torch.dtype = torch.bfloat16,
+          assign_fn: Callable | None = None,
+          loss_fn: Callable | None = None):
+    """`benchmarks/mfu_breakdown.py::build` (and `bench.py::
+    _make_train_setup`): the FCOS step at ``img`` px computing in
+    ``dtype`` (bf16, as the programs run it), SGD on
+    `exponential_with_floor(5e-4)`, its fresh state and the synthetic batch
+    of ``batch`` images on ``device`` (None: CUDA, raising without one).
+    The weights are drawn from a generator seeded with `SEED`; neither
+    ``freeze_bn``, ``dtype`` nor the environment's switches change the
+    parameters, so every build of one ``nc`` and ``backbone`` starts from
+    the same weights. ``assign_fn`` / ``loss_fn`` replace the flagship's
+    (a profile wraps them in named ranges).
+
+    Returns (`Parts`, state, batch)."""
+    dev = runtime.resolve_device(device)
+    model = FCOS(num_classes=nc, backbone=backbone, freeze_bn=freeze_bn,
+                 dtype=dtype, generator=torch.Generator().manual_seed(SEED)
+                 ).to(dev)
+    opt = make_optimizer("sgd", exponential_with_floor(5e-4))
+    assign_fn = assign_fn or flagship_assign(img, nc)
+    loss_fn = loss_fn or fcos_loss
+    raw_step = make_train_step(model, assign_fn, loss_fn, opt)
+    data = {k: torch.from_numpy(v).to(dev)
+            for k, v in train_batch(img, batch, nc).items()}
+    return (Parts(model, assign_fn, loss_fn, raw_step),
+            create_train_state(model, None, opt), data)
 
 
 def make_train_setup(img: int, batch: int, backbone: str = "resnet50", *,
@@ -99,21 +139,11 @@ def make_train_setup(img: int, batch: int, backbone: str = "resnet50", *,
                      dtype: torch.dtype = torch.bfloat16,
                      assign_fn: Callable | None = None,
                      loss_fn: Callable | None = None) -> TrainSetup:
-    """`bench.py::_make_train_setup`: the FCOS step at ``img`` px computing
-    in ``dtype`` (bf16, as the bench runs it), its fresh state and the
-    synthetic batch of ``batch`` images on ``device`` (None: CUDA, raising
-    without one). ``assign_fn`` / ``loss_fn`` replace the flagship's
-    (a profile wraps them in named ranges)."""
-    dev = runtime.resolve_device(device)
-    model = FCOS(num_classes=NUM_CLASSES, backbone=backbone,
-                 freeze_bn=freeze_bn, dtype=dtype,
-                 generator=torch.Generator().manual_seed(SEED)).to(dev)
-    opt = make_optimizer("sgd", exponential_with_floor(5e-4))
-    step = make_train_step(model, assign_fn or flagship_assign(img),
-                           loss_fn or fcos_loss, opt)
-    data = {k: torch.from_numpy(v).to(dev)
-            for k, v in train_batch(img, batch).items()}
-    return TrainSetup(step, create_train_state(model, None, opt), data)
+    """`bench.py::_make_train_setup`: `build`'s step, state and batch."""
+    parts, state, data = build(img, batch, backbone, freeze_bn=freeze_bn,
+                               device=device, dtype=dtype,
+                               assign_fn=assign_fn, loss_fn=loss_fn)
+    return TrainSetup(parts.raw_step, state, data)
 
 
 def step_flops(setup: TrainSetup) -> int:

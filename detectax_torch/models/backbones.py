@@ -9,6 +9,7 @@ dtype of every layer (the parameters stay float32).
 """
 from __future__ import annotations
 
+import os
 from typing import Sequence
 
 import torch
@@ -72,6 +73,12 @@ class ResNet(nn.Module):
     `keras_compat` / `torch_compat` switch stride placement, padding, BN
     eps and conv bias to those zoos' conventions, so ported weights
     reproduce their features.
+
+    `s2d_stem` evaluates the 7x7/s2 stem conv as a 4x4/s1 conv over
+    space-to-depth input (`layers.S2DConv7x7`: the same function and
+    parameters); ``None`` reads ``DETECTAX_S2D_STEM=1`` at every call, as
+    the JAX package reads it at every trace. Either way a call whose input
+    has an odd H or W takes the plain stem.
     """
 
     flax_name = "ResNet_0"
@@ -80,23 +87,26 @@ class ResNet(nn.Module):
                  width: int = 64, groups: int = 1, width_factor: int = 1,
                  expansion: int = 4, keras_compat: bool = False,
                  torch_compat: bool = False, in_features: int = 3,
+                 s2d_stem: bool | None = None,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         if keras_compat and torch_compat:
             raise ValueError("keras_compat and torch_compat exclude each "
                              "other")
         self.compat_stem = keras_compat or torch_compat
+        self.s2d_stem = s2d_stem
         bn_eps = 1.001e-5 if keras_compat else 1e-5
+        # built able to take either evaluation; `forward` picks one a call
         if self.compat_stem:
             # explicit (3,3) pad + 7x7/2 VALID conv (torch convs carry no
             # bias), then (1,1) zero pad + 3x3/2 VALID max pool
             self.stem = ConvBN(in_features, width, kernel=7, stride=2,
                                padding=((3, 3), (3, 3)),
                                use_bias=keras_compat, bn_eps=bn_eps,
-                               dtype=dtype)
+                               s2d=True, dtype=dtype)
         else:
             self.stem = ConvBN(in_features, width, kernel=7, stride=2,
-                               dtype=dtype)
+                               s2d=True, dtype=dtype)
         self.block_names = []
         self.out_channels = {}
         ch = width
@@ -118,7 +128,11 @@ class ResNet(nn.Module):
                 self.out_channels[f"c{stage + 2}"] = ch
 
     def forward(self, x, train: bool = False):
-        h = self.stem(x, train)
+        s2d = self.s2d_stem
+        if s2d is None:
+            s2d = os.environ.get("DETECTAX_S2D_STEM") == "1"
+        s2d = s2d and x.shape[-2] % 2 == 0 and x.shape[-1] % 2 == 0
+        h = self.stem(x, train, s2d=s2d)
         if self.compat_stem:
             # zero pad == -inf pad here: the input is post-ReLU
             h = F.max_pool2d(F.pad(h, (1, 1, 1, 1)), kernel_size=3, stride=2)

@@ -259,16 +259,71 @@ def depth_to_space_nchw(x: torch.Tensor, block: int) -> torch.Tensor:
     return x.reshape(b, cs, h * block, w * block)
 
 
+class S2DConv7x7(Conv):
+    """A 7x7/s2 `Conv` evaluated as a 4x4/s1 conv over space-to-depth
+    input: the JAX package's `_S2DConv7x7`, the same function of the same
+    parameter (``weight [F, Cin, 7, 7]``, the Flax ``Conv_0/kernel``), so
+    checkpoints and ported weights load unchanged.
+
+    With 3 input channels the 7x7 conv fills a tensor-core MMA's
+    contraction poorly; folding each 2x2 pixel neighbourhood into the
+    channels gives Cin 12 and a 4x4 kernel. The kernel is repacked at every
+    call (a pure function of the weight, so autograd carries the gradient
+    back through it): padded to 8x8 on the high side for ``pad_low`` 2
+    ("SAME" on an even side) or on the low side for ``pad_low`` 3 (the
+    Keras / torch explicit (3, 3) stem), its taps ``t = 2a + dy`` packed as
+    ``[F, (dy, dx, c), a, b]`` to match `space_to_depth_nchw`, and the
+    space-to-depth input padded (1, 2) or (2, 1). The input's H and W must
+    be even. ``forward(x, s2d=False)`` evaluates the plain 7x7 conv."""
+
+    def __init__(self, in_features: int, features: int, padding="SAME",
+                 use_bias: bool = False, dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, features, 7, stride=2,
+                         padding=padding, use_bias=use_bias, dtype=dtype)
+        if padding == "SAME":
+            self.pad_low = 2
+        elif (not isinstance(padding, str)
+              and tuple(map(tuple, padding)) == ((3, 3), (3, 3))):
+            self.pad_low = 3
+        else:
+            raise ValueError(f"unsupported s2d stem padding {padding!r}")
+
+    def s2d_kernel(self, dtype: torch.dtype) -> torch.Tensor:
+        """The 4x4 kernel ``[F, 4 * Cin, 4, 4]`` over space-to-depth
+        input, in ``dtype``."""
+        w = cast(self.weight, dtype)
+        f, c = w.shape[:2]
+        # F.pad's order: (W low, W high, H low, H high)
+        w8 = F.pad(w, (0, 1, 0, 1) if self.pad_low == 2 else (1, 0, 1, 0))
+        # [f, c, a, dy, b, dx] -> [f, (dy, dx, c), a, b]
+        w8 = w8.reshape(f, c, 4, 2, 4, 2).permute(0, 3, 5, 1, 2, 4)
+        return w8.reshape(f, 4 * c, 4, 4)
+
+    def forward(self, x: torch.Tensor, s2d: bool = True) -> torch.Tensor:
+        if not s2d:
+            return super().forward(x)
+        if x.shape[-2] % 2 or x.shape[-1] % 2:
+            raise ValueError(f"the s2d stem needs an even H and W, got "
+                             f"{tuple(x.shape[-2:])}")
+        dtype = self.compute_dtype
+        lo, hi = (1, 2) if self.pad_low == 2 else (2, 1)
+        xs = F.pad(space_to_depth_nchw(cast(x, dtype), 2), (lo, hi, lo, hi))
+        bias = None if self.bias is None else cast(self.bias, dtype)
+        return F.conv2d(xs, self.s2d_kernel(dtype), bias)
+
+
 class ConvBN(nn.Module):
     """Conv + BatchNorm + optional ReLU over NCHW.
 
     `padding` may be "SAME", "VALID", or explicit ((t,b),(l,r)) — the
     latter reproduces the Keras/torch ZeroPadding+valid stem convention.
-    `s2d=True` asks the JAX package for a space-to-depth evaluation of a
-    7x7/s2 stem; that is the same function of the same parameters, and the
-    port always evaluates it as the plain 7x7 conv it equals. ``dtype`` is
-    the compute dtype of both layers; `bn_f32_stats` is read here, when the
-    block is built.
+    `s2d=True` (7x7/s2 stems with "SAME" or ((3,3),(3,3)) padding only)
+    builds the conv as `S2DConv7x7`: the same parameter, evaluated as a
+    4x4/s1 conv over space-to-depth input; ``forward(..., s2d=False)``
+    evaluates it as the plain 7x7 conv for that call (the ResNet stem
+    decides per call, as the JAX package does). ``dtype`` is the compute
+    dtype of both layers; `bn_f32_stats` is read here, when the block is
+    built.
     """
 
     def __init__(self, in_features: int, features: int, kernel: int = 3,
@@ -281,15 +336,22 @@ class ConvBN(nn.Module):
         if act not in (True, False, "relu", "relu6"):
             raise ValueError(f"unknown activation {act!r}")
         self.act = act
-        self.Conv_0 = Conv(in_features, features, kernel, stride=stride,
-                           padding=padding, use_bias=use_bias, groups=groups,
-                           dtype=dtype)
+        self.s2d = bool(s2d)
+        if self.s2d:
+            self.Conv_0 = S2DConv7x7(in_features, features, padding=padding,
+                                     use_bias=use_bias, dtype=dtype)
+        else:
+            self.Conv_0 = Conv(in_features, features, kernel, stride=stride,
+                               padding=padding, use_bias=use_bias,
+                               groups=groups, dtype=dtype)
         self.BatchNorm_0 = BatchNorm(
             features, epsilon=bn_eps, dtype=dtype,
             force_float32_reductions=bn_f32_stats())
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        x = self.BatchNorm_0(self.Conv_0(x), train)
+    def forward(self, x: torch.Tensor, train: bool = False,
+                s2d: bool = True) -> torch.Tensor:
+        h = self.Conv_0(x, s2d=s2d) if self.s2d else self.Conv_0(x)
+        x = self.BatchNorm_0(h, train)
         if self.act == "relu6":
             return F.relu6(x)
         if self.act:

@@ -20,8 +20,9 @@ and `benchmarks/serving_bench.py` on the same inputs:
   serving function those of JAX's `make_serving_fn` on the same weights
   (classes, valid, num_valid exact; boxes and scores to 1e-5);
 - the profile's sums over a hand-made list of events are exact;
-- the three entry points, without a CUDA device, exit non-zero and print
-  no metric line.
+- the three entry points, and the six programs of
+  `tests/test_torch_lever_programs.py`, without a CUDA device, exit
+  non-zero and print no metric line.
 """
 import json
 import os
@@ -436,10 +437,15 @@ def test_profile_summarize_refuses_a_trace_without_kernels():
 # the entry points without a card
 # --------------------------------------------------------------------------
 
+LEVER_PROGRAMS = ("mfu_breakdown", "config_frontier", "s2d_ab", "pool_ab",
+                  "latency_reconcile", "diag_export")
+
+
 @pytest.mark.parametrize("cmd", [
     ["bench_torch.py"], ["-m", "detectax_torch.bench.serving"],
-    ["-m", "detectax_torch.bench.profile_step"]],
-    ids=["bench_torch", "serving", "profile_step"])
+    ["-m", "detectax_torch.bench.profile_step"],
+    *(["-m", f"detectax_torch.bench.{m}"] for m in LEVER_PROGRAMS)],
+    ids=["bench_torch", "serving", "profile_step", *LEVER_PROGRAMS])
 def test_entry_points_need_a_cuda_device(cmd):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env.update(PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")

@@ -191,7 +191,10 @@ def test_every_port_module_imports_without_a_build():
                 "bench._common", "bench.train", "bench.decode",
                 "bench.serving", "bench.profile_step",
                 "bench.pretrain_backbone", "bench.run_detbench",
-                "bench.merge_eval_into_results"):
+                "bench.merge_eval_into_results", "bench._levers",
+                "bench.mfu_breakdown", "bench.config_frontier",
+                "bench.s2d_ab", "bench.pool_ab", "bench.latency_reconcile",
+                "bench.diag_export"):
         assert f"detectax_torch.{new}" in mods
     # TensorFlow and PIL are imported inside the functions that need them;
     # the native image library is built at first use, as the kernels are
@@ -237,7 +240,9 @@ def test_static_scan_finds_no_forbidden_import():
     files = _port_sources()
     assert len(files) > 30, files
     for new in ("pretrain_backbone", "run_detbench",
-                "merge_eval_into_results"):
+                "merge_eval_into_results", "_levers", "mfu_breakdown",
+                "config_frontier", "s2d_ab", "pool_ab", "latency_reconcile",
+                "diag_export"):
         assert os.path.join(REPO, "detectax_torch", "bench",
                             f"{new}.py") in files
     hits = [
