@@ -15,11 +15,14 @@ log's losses (total 2.28 at step 100 over 514 positives) is that of
 (its log's command line ends in ``--bf16``).
 
     python3 detbench_fcos_r50.py --out DIR [--max_steps 3000] [--bf16] \
-        [--loss_norm pos|batch] [--grad_clip 16] [--trunk T]
+        [--loss_norm pos|batch] [--grad_clip 16] [--trunk T] [--seed 0]
 
 ``--trunk`` takes another crop-pretrained ResNet-50 trunk (the port's own
 ``.npz`` from `detectax_torch.bench.pretrain_backbone --backbone
-resnet50`, or a Flax ``.msgpack``); the TPU row's by default.
+resnet50`, or a Flax ``.msgpack``); the TPU row's by default. ``--seed``
+goes to the trainer's ``--seed`` (the heads' init and the loader's order;
+0, the TPU row's, by default), so that rows at two seeds give the spread
+of the detection training alone.
 
 Writes ``DIR/result.json`` (the card, the wall times, the losses of every
 display step and the eval summary) and ``DIR/train.log``; the checkpoint
@@ -137,6 +140,8 @@ def main(argv=None):
                    help="keep the checkpoint and cache directory")
     p.add_argument("--trunk", default=TRUNK,
                    help="the crop-pretrained trunk (.npz or Flax .msgpack)")
+    p.add_argument("--seed", type=int, default=0,
+                   help="the trainer's --seed")
     args = p.parse_args(argv)
     if not os.path.exists(args.trunk):
         raise SystemExit(f"the pretrained trunk {args.trunk} is missing")
@@ -153,6 +158,7 @@ def main(argv=None):
             "--grad_clip", str(args.grad_clip),
             "--display_step", "100", "--step_save", "1000",
             "--ckpt_dir", ckpt, "--out_dir", out,
+            "--seed", str(args.seed),
             *(["--bf16"] if args.bf16 else []),
         ])
 
@@ -163,6 +169,7 @@ def main(argv=None):
                result={"max_steps": args.max_steps,
                        "loss_norm": args.loss_norm,
                        "grad_clip": args.grad_clip, "trunk": args.trunk,
+                       "seed": args.seed,
                        "dtype": "bfloat16" if args.bf16 else "float32"},
                keep=args.keep)
 

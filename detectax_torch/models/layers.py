@@ -25,6 +25,9 @@ from detectax_torch.parallel.mesh import all_reduce_sum, batch_stats_group
 
 # Focal-prior bias log(0.01/0.99) used by every classification head.
 FOCAL_BIAS = math.log(0.01 / 0.99)
+# The standard deviation of a standard normal truncated to [-2, 2]
+# (`jax.nn.initializers.variance_scaling`'s constant).
+TRUNC_NORMAL_STD = 0.87962566103423978
 
 
 def cast(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -486,19 +489,25 @@ class FocalBias(nn.Module):
 
 def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
     """Seeded initial weights, the Flax modules' scheme: conv and dense
-    kernels LeCun-normal (variance 1/fan_in), their biases zero — or the
+    kernels by Flax's ``lecun_normal()`` (``variance_scaling(1, "fan_in",
+    "truncated_normal")``: a standard normal truncated to [-2, 2], scaled
+    by sqrt(1/fan_in) / `TRUNC_NORMAL_STD` so that the variance is
+    1/fan_in; fan_in = in/groups * kh * kw), their biases zero — or the
     focal prior where the conv is marked ``focal_bias`` — BatchNorm scale
     one, bias zero, running mean zero, running variance one, a `FocalBias`
-    its initial value. The numbers are drawn on the generator's device and
-    copied to the module's, so a seed gives the same weights wherever the
-    module lies."""
+    its initial value. The draw follows Flax's distribution, not
+    ``jax.random``'s bits. The numbers are drawn on the generator's device
+    and copied to the module's, so a seed gives the same weights wherever
+    the module lies."""
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, (nn.Conv2d, nn.Linear)):
                 fan_in = m.weight[0].numel()
-                m.weight.copy_(torch.empty(
-                    m.weight.shape, device=generator.device,
-                ).normal_(0.0, math.sqrt(1.0 / fan_in), generator=generator))
+                w = torch.empty(m.weight.shape, device=generator.device)
+                nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0,
+                                      generator=generator)
+                m.weight.copy_(
+                    w * (math.sqrt(1.0 / fan_in) / TRUNC_NORMAL_STD))
                 if m.bias is not None:
                     m.bias.fill_(
                         FOCAL_BIAS if getattr(m, "focal_bias", False) else 0.0

@@ -232,8 +232,10 @@ def _imported_roots(path):
 def _port_sources():
     files = glob.glob(os.path.join(REPO, "detectax_torch", "**", "*.py"),
                       recursive=True)
-    return sorted(files) + [os.path.join(REPO, "chip_smoke.py"),
-                            os.path.join(REPO, "bench_torch.py")]
+    scripts = ["chip_smoke.py", "bench_torch.py", "trunk_bn_stats.py",
+               "detbench_fcos_r50.py", "detbench_retinanet.py",
+               "detbench_hourglass.py"]
+    return sorted(files) + [os.path.join(REPO, f) for f in scripts]
 
 
 def test_static_scan_finds_no_forbidden_import():
