@@ -23,9 +23,9 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import re
 
 from detbench_fcos_r50 import ROOT, run
+from detbench_logs import display_steps
 
 TPU_RUN = os.path.join(ROOT, "benchmarks", "runs_v2", "retinanet")
 
@@ -34,21 +34,10 @@ def tpu_yardsticks(tpu_run: str = TPU_RUN) -> dict:
     """The TPU row's eval summary and, by step, the losses and `num_pos`
     of its log's first run (a log may hold the same run twice); the row
     is the directory ``tpu_run`` (`log.txt`, `eval.json`)."""
-    steps = {}
-    with open(os.path.join(tpu_run, "log.txt")) as f:
-        runs = 0
-        for line in f:
-            if line.startswith("$ "):
-                runs += 1
-                if runs > 1:
-                    break
-            m = re.match(r"step (\d+) \| (.*)", line)
-            if m:
-                fields = dict(kv.split(" ", 1) for kv in
-                              m.group(2).split(" | "))
-                steps[int(m.group(1))] = {
-                    k: float(fields[k]) for k in ("cls", "reg", "total",
-                                                  "num_pos", "grad_norm")}
+    steps = {step: {k: line[k] for k in ("cls", "reg", "total", "num_pos",
+                                          "grad_norm")}
+             for step, line in display_steps(
+                 os.path.join(tpu_run, "log.txt"), first_run=True).items()}
     with open(os.path.join(tpu_run, "eval.json")) as f:
         summary = json.load(f)
     return {"eval": {k: summary[k] for k in ("mAP@0.5", "mAP@[.5:.95]")},

@@ -14,22 +14,37 @@ MobileNetV2 trunk, ``--trunk`` (the port's own from
 is read as well). A missing trunk fails those rows as a failed trainer
 does; nothing falls back to a random init.
 
+A row can be carried across runs that each stop before it ends. Stopped
+by SIGTERM (``timeout``), the driver ends the trainer and writes the row
+as ``{"error": "train stopped", "train_min": ...}`` with the newest
+checkpoint's step. ``--resume`` then hands the trainers their own
+``--resume``: each restarts from its newest checkpoint under the run
+directory, and its row's ``train_min`` is the sum over the runs
+(``train_min_calls``), with ``resumed_from`` the step it restarted at. As
+in the JAX package, a resumed trainer's loader restarts from its seed,
+so the resumed part sees the first part's batch order again. ``--seed N``
+hands the trainers ``--seed N``. Neither flag changes an evaluate argv;
+a row made with either records its ``seed``.
+
 Usage (a CUDA device; exits 1 without one):
     python -m detectax_torch.bench.run_detbench [--families fcos ...]
         [--bench detbench|detbench_v2|detbench_v2_crowd] [--steps 4000]
-        [--trunk runs_torch/pretrain_mbv2/backbone.npz]
+        [--trunk runs_torch/pretrain_mbv2/backbone.npz] [--resume]
+        [--seed N]
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
+import signal
 import subprocess
 import sys
 import time
 from typing import Callable
 
 from detectax_torch.bench._common import require_cuda
+from detectax_torch.train.checkpoint import CheckpointManager
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -128,6 +143,14 @@ FROM_SCRATCH_ARGS = [
 Runner = Callable[[list, str], int]
 
 
+class Stopped(Exception):
+    """The driver was asked to stop (SIGTERM) while a family ran."""
+
+
+def _stop(signum, frame):
+    raise Stopped(signum)
+
+
 def run(cmd: list, log_path: str) -> int:
     """Run ``cmd`` from the repository root, its output appended to
     ``log_path``; returns its exit code."""
@@ -164,6 +187,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--trunk", default=DEFAULT_TRUNK,
                    help="crop-pretrained trunk (.npz or Flax .msgpack) for "
                         "the fcos_center and centernet_s8 rows")
+    p.add_argument("--resume", action="store_true",
+                   help="hand each trainer --resume: it restarts from its "
+                        "newest checkpoint, and the row's train_min adds "
+                        "this run's minutes to the stopped run's")
+    p.add_argument("--seed", type=int, default=None,
+                   help="hand each trainer --seed N (the trainers' "
+                        "default 0 otherwise)")
     p.add_argument("--run_root", default=os.path.join(RUNS, "detbench"))
     p.add_argument("--out", default=os.path.join(
         RUNS, "RESULTS_detbench_v1.json"))
@@ -204,6 +234,10 @@ def family_commands(fam: str, args) -> tuple[list, list]:
         train_cmd += CROWD_TRAIN_OVERRIDES.get(fam, [])
     if args.bf16:
         train_cmd.append("--bf16")
+    if args.resume:
+        train_cmd.append("--resume")
+    if args.seed is not None:
+        train_cmd += ["--seed", str(args.seed)]
     eval_cmd = [
         sys.executable, "-u", "-m", "detectax_torch.cli.evaluate",
         "--family", fam,
@@ -224,7 +258,8 @@ def family_commands(fam: str, args) -> tuple[list, list]:
 def run_families(args, runner: Runner = run) -> dict:
     """Train and evaluate ``args.families`` one after another through
     ``runner(argv, log_path) -> exit code``, writing the results file
-    after each family; returns the results."""
+    after each family; returns the results. A `Stopped` raised while a
+    family runs writes its row as stopped and is raised again."""
     results = {}
     if os.path.exists(args.out):
         with open(args.out) as f:
@@ -235,22 +270,56 @@ def run_families(args, runner: Runner = run) -> dict:
         fam_dir = os.path.join(args.run_root, fam)
         os.makedirs(fam_dir, exist_ok=True)
         log_path = os.path.join(fam_dir, "log.txt")
+        ckpt_dir = os.path.join(fam_dir, "ckpt")
         train_cmd, eval_cmd = family_commands(fam, args)
-        t0 = time.time()
-        # the hourglass families have no --backbone-driven architecture
-        print(f"[{fam}] training {args.steps} steps ...", flush=True)
-        rc = runner(train_cmd, log_path)
-        train_min = (time.time() - t0) / 60
-        if rc != 0:
-            print(f"[{fam}] TRAIN FAILED rc={rc} (see {log_path})",
-                  flush=True)
-            results[fam] = {"error": f"train rc={rc}"}
-            _write(args.out, results)
-            continue
+        calls = []      # the minutes of the runs this one resumes
+        carried = {}
+        if args.resume or args.seed is not None:
+            carried["seed"] = args.seed or 0
+        if args.resume:
+            prior = results.get(fam, {})
+            calls = prior.get("train_min_calls", [prior["train_min"]]
+                              if "train_min" in prior else [])
+            step = CheckpointManager(ckpt_dir).latest_step()
+            if step is not None:
+                carried["resumed_from"] = step
 
-        eval_json = os.path.join(fam_dir, "eval.json")
-        print(f"[{fam}] evaluating ...", flush=True)
-        rc = runner(eval_cmd, log_path)
+        def total(train_min):
+            done = calls + [round(train_min, 1)]
+            split = {"train_min_calls": done} if len(done) > 1 else {}
+            return round(sum(done), 1), split
+
+        t0 = time.time()
+        train_min = None
+        try:
+            # the hourglass families have no --backbone-driven architecture
+            print(f"[{fam}] training {args.steps} steps ...", flush=True)
+            rc = runner(train_cmd, log_path)
+            train_min = (time.time() - t0) / 60
+            if rc != 0:
+                print(f"[{fam}] TRAIN FAILED rc={rc} (see {log_path})",
+                      flush=True)
+                results[fam] = {"error": f"train rc={rc}"}
+                _write(args.out, results)
+                continue
+
+            eval_json = os.path.join(fam_dir, "eval.json")
+            print(f"[{fam}] evaluating ...", flush=True)
+            rc = runner(eval_cmd, log_path)
+        except Stopped:
+            minutes, split = total(
+                train_min if train_min is not None
+                else (time.time() - t0) / 60)
+            results[fam] = {
+                "error": "train stopped" if train_min is None
+                else "eval stopped",
+                "train_min": minutes, **split,
+                "checkpoint_step": CheckpointManager(ckpt_dir).latest_step(),
+                **carried}
+            print(f"[{fam}] STOPPED after {minutes:.1f} min of training",
+                  flush=True)
+            _write(args.out, results)
+            raise
         if rc != 0 or not os.path.exists(eval_json):
             print(f"[{fam}] EVAL FAILED rc={rc} (see {log_path})",
                   flush=True)
@@ -260,11 +329,13 @@ def run_families(args, runner: Runner = run) -> dict:
         with open(eval_json) as f:
             summary = json.load(f)
         summary["train_steps"] = args.steps
-        summary["train_min"] = round(train_min, 1)
+        summary["train_min"], split = total(train_min)
+        summary.update(split)
         summary["backbone"] = args.backbone
+        summary.update(carried)
         results[fam] = summary
         print(f"[{fam}] mAP@0.5={summary.get('mAP@0.5'):.4f} "
-              f"({train_min:.1f} min train)", flush=True)
+              f"({summary['train_min']:.1f} min train)", flush=True)
         _write(args.out, results)
 
     print(json.dumps(results, indent=2))
@@ -279,7 +350,11 @@ def _write(path, results):
 def main(argv=None) -> dict:
     args = parse_args(argv)
     require_cuda("detectax_torch.bench.run_detbench")
-    return run_families(args)
+    signal.signal(signal.SIGTERM, _stop)
+    try:
+        return run_families(args)
+    except Stopped:
+        raise SystemExit(128 + signal.SIGTERM)
 
 
 if __name__ == "__main__":

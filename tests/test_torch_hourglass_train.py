@@ -28,6 +28,9 @@ against the JAX package, on the CPU.
   buckets 64 and 128), then `cli.evaluate` from its checkpoint; and
   `cli.evaluate` against `detectax.cli.evaluate` with the same weights:
   detections image by image, the same ground truth, equal summaries.
+* `cli.train_hourglass_voc` stopped after two steps and resumed to four
+  with ``--resume``: the step count, Adam's moments and the epoch
+  schedule's rate go on from the checkpoint.
 """
 import functools
 import types
@@ -36,6 +39,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from detectax.cli import evaluate as j_evaluate
 from detectax.data import Loader as JLoader
@@ -313,3 +317,43 @@ def test_evaluate_cli_still_refuses_data_parallel_for_the_hourglass(
                          "--ckpt_dir", str(tmp_path / "none"),
                          "--data_parallel"])
     assert "no process group" in capsys.readouterr().out
+
+
+def test_train_cli_resumes_adam_and_the_epoch_schedule(tmp_path, capsys):
+    """Two steps with a checkpoint at step 2, then ``--resume --max_steps
+    4``: the run says where it resumed, ends at step 4, and its checkpoint
+    holds Adam's count 4 for every parameter (a fresh Adam would hold 2)
+    and the rate of update 4, lr 0.5^3 on an epoch of one step (a
+    restarted schedule would give 0.5)."""
+    ckpt = str(tmp_path / "ckpt")
+    argv = ["--device", "cpu", "--canvas", str(IMG), "--batch_size", "4",
+            "--synthetic_n", "8", "--n_filters", "2", "--display_step", "1",
+            "--step_save", "2", "--steps_per_epoch", "1", "--lr_decay",
+            "0.5", "--init_lr", str(LR), "--ckpt_dir", ckpt,
+            "--out_dir", str(tmp_path / "out")]
+    first = train_hourglass_voc.main(argv + ["--max_steps", "2"])
+    assert first["final_step"] == 2
+    before = CheckpointManager(ckpt)._load(2, "cpu")
+    capsys.readouterr()
+    second = train_hourglass_voc.main(argv + ["--max_steps", "4",
+                                             "--resume"])
+    printed = capsys.readouterr().out
+    assert "resumed from checkpoint at step 2" in printed
+    assert second["final_step"] == 4 and np.isfinite(second["total"])
+    steps = [int(line.split()[1]) for line in printed.splitlines()
+             if line.startswith("step ")]
+    assert steps == [3, 4]
+    assert CheckpointManager(ckpt).latest_step() == 4
+    after = CheckpointManager(ckpt)._load(4, "cpu")
+    assert before["step"] == 2 and after["step"] == 4
+    counts = {float(v["step"]) for v in after["opt"]["state"].values()}
+    assert counts == {4.0}
+    assert {float(v["step"]) for v in before["opt"]["state"].values()} == {
+        2.0}
+    assert after["opt"]["param_groups"][0]["lr"] == pytest.approx(
+        LR * 0.5 ** 3, rel=1e-12)
+    # the moments went on from the checkpoint's, which they differ from
+    moved = [not torch.equal(after["opt"]["state"][k]["exp_avg_sq"],
+                             before["opt"]["state"][k]["exp_avg_sq"])
+             for k in before["opt"]["state"]]
+    assert all(moved)

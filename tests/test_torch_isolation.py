@@ -234,7 +234,7 @@ def _port_sources():
                       recursive=True)
     scripts = ["chip_smoke.py", "bench_torch.py", "trunk_bn_stats.py",
                "detbench_fcos_r50.py", "detbench_retinanet.py",
-               "detbench_hourglass.py"]
+               "detbench_hourglass.py", "detbench_logs.py"]
     return sorted(files) + [os.path.join(REPO, f) for f in scripts]
 
 

@@ -13,14 +13,20 @@ the CPU, with no trainer run.
   gives the JAX driver's results JSON, resuming from an existing file;
 - `merge_eval_into_results` equals the JAX script on the same files,
   the stale and new-family refusals included;
-- without a CUDA device the driver exits 1 before any subprocess.
+- without a CUDA device the driver exits 1 before any subprocess;
+- ``--resume`` and ``--seed N`` add the trainers' own flags to every
+  training argv and nothing to an evaluate argv; a row stopped by SIGTERM
+  and resumed sums its minutes and says where it resumed and with which
+  seed, the other rows kept.
 """
 import argparse
 import importlib
 import json
 import os
+import signal
 import subprocess
 import sys
+import time
 import types
 from unittest import mock
 
@@ -191,6 +197,103 @@ def test_results_equal_the_jax_drivers_under_a_failing_runner(roots,
     assert want["fcos"]["train_steps"] == 7
 
 
+@pytest.mark.parametrize("flags,added", [
+    (["--resume"], ["--resume"]),
+    (["--seed", "1"], ["--seed", "1"]),
+    (["--resume", "--seed", "1"], ["--resume", "--seed", "1"])])
+@pytest.mark.parametrize("bench", BENCHES)
+def test_resume_and_seed_reach_every_trainer_and_no_evaluation(
+        roots, bench, flags, added):
+    _, troot = roots
+    trunk = str(troot / "trunk.npz")
+    plain = _port_args(["--bench", bench], trunk)
+    flagged = _port_args(["--bench", bench, *flags], trunk)
+
+    class Parsed(Exception):
+        pass
+
+    original = argparse.ArgumentParser.parse_args
+
+    def parse_then_stop(self, argv=None, namespace=None):
+        raise Parsed(original(self, argv, namespace))
+
+    for fam in TR.FAMILIES:
+        train0, eval0 = TR.family_commands(fam, plain)
+        train1, eval1 = TR.family_commands(fam, flagged)
+        assert train1 == train0 + added
+        assert eval1 == eval0
+        module = importlib.import_module(train1[3])
+        with mock.patch.object(argparse.ArgumentParser, "parse_args",
+                               parse_then_stop):
+            with pytest.raises(Parsed) as parsed:
+                module.main(train1[4:])
+        ns = parsed.value.args[0]
+        assert ns.resume == ("--resume" in flags)
+        assert ns.seed == (1 if "--seed" in flags else 0)
+        assert ns.dataset == bench and ns.max_steps == 4000
+
+
+def test_a_stopped_row_resumes_with_its_minutes_and_seed(roots,
+                                                        monkeypatch):
+    """A stop (the driver's SIGTERM handler raises `Stopped`) in the middle
+    of ``hourglass`` writes its row as stopped, with its minutes and its
+    newest checkpoint; ``--resume --seed 1`` then trains it on and writes
+    a row whose ``train_min`` sums the two runs, with ``train_min_calls``,
+    ``resumed_from`` and ``seed``. The other rows stay as they were."""
+    _, troot = roots
+    trunk = str(troot / "trunk.npz")
+    clock = types.SimpleNamespace(now=1000.0)
+    monkeypatch.setattr(TR, "time",
+                        types.SimpleNamespace(time=lambda: clock.now))
+    existing = {"fcos": {"mAP@0.5": 0.73, "train_steps": 4000,
+                         "train_min": 12.2}}
+    base = ["--families", "hourglass", "fcos_center_v1"]
+    args = _port_args(base, trunk)
+    os.makedirs(os.path.dirname(args.out))
+    with open(args.out, "w") as f:
+        json.dump(existing, f)
+    ckpt = os.path.join(args.run_root, "hourglass", "ckpt")
+
+    def stopping(cmd, log_path):
+        clock.now += 45.04 * 60
+        os.makedirs(ckpt, exist_ok=True)
+        open(os.path.join(ckpt, "ckpt_2000.pt"), "w").close()
+        raise TR.Stopped(15)
+
+    with pytest.raises(TR.Stopped):
+        TR.run_families(args, stopping)
+    with open(args.out) as f:
+        stopped = json.load(f)
+    assert stopped == {**existing, "hourglass": {
+        "error": "train stopped", "train_min": 45.0,
+        "checkpoint_step": 2000}}
+
+    calls = []
+    recorder = _fake_runner(calls)
+
+    def resumed(cmd, log_path):
+        if "--family" not in cmd:
+            clock.now += 40.96 * 60
+        return recorder(cmd, log_path)
+
+    args = _port_args(base + ["--resume", "--seed", "1"], trunk)
+    got = TR.run_families(args, resumed)
+    assert [c[-3:] for c in calls[::2]] == [["--resume", "--seed", "1"]] * 2
+    row = got["hourglass"]
+    assert row["mAP@0.5"] == SUMMARY["mAP@0.5"]
+    assert row["train_min"] == 86.0
+    assert row["train_min_calls"] == [45.0, 41.0]
+    assert row["resumed_from"] == 2000 and row["seed"] == 1
+    # a row with no earlier run: no split, no checkpoint to resume from
+    assert got["fcos_center_v1"]["train_min"] == 41.0
+    assert "train_min_calls" not in got["fcos_center_v1"]
+    assert "resumed_from" not in got["fcos_center_v1"]
+    assert got["fcos_center_v1"]["seed"] == 1
+    assert got["fcos"] == existing["fcos"]
+    with open(args.out) as f:
+        assert json.load(f) == got
+
+
 # --------------------------------------------------------------------------
 # the merge tool
 # --------------------------------------------------------------------------
@@ -255,3 +358,83 @@ def test_driver_needs_a_cuda_device_before_any_subprocess(tmp_path):
     assert "needs a CUDA device" in res.stderr
     assert not out.exists() and not (tmp_path / "runs").exists()
     assert "training" not in res.stdout
+
+
+def test_sigterm_stops_the_trainer_and_writes_the_row(tmp_path):
+    """`main` under SIGTERM (what ``timeout`` sends): the trainer's
+    process is ended, the row is written as stopped, and the driver exits
+    143. The card check and the family's commands are replaced, so that a
+    ``sleep`` stands in for the trainer."""
+    out, runs = tmp_path / "RESULTS.json", tmp_path / "runs"
+    program = (
+        "import sys\n"
+        "from detectax_torch.bench import run_detbench as R\n"
+        "R.require_cuda = lambda name: None\n"
+        "R.family_commands = lambda fam, args: (\n"
+        "    [sys.executable, '-c', 'import time; time.sleep(60)'],\n"
+        "    ['true'])\n"
+        f"R.main(['--families', 'hourglass', '--run_root', {str(runs)!r},\n"
+        f"        '--out', {str(out)!r}])\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.Popen([sys.executable, "-c", program], cwd=REPO,
+                            env=env, stdout=subprocess.PIPE, text=True)
+    try:
+        assert "training" in proc.stdout.readline()
+        log = runs / "hourglass" / "log.txt"
+        for _ in range(200):    # the trainer has started once it logs
+            if log.exists() and log.read_text().strip():
+                break
+            time.sleep(0.05)
+        proc.send_signal(signal.SIGTERM)
+        rest = proc.communicate(timeout=60)[0]
+    finally:
+        proc.kill()
+    assert proc.returncode == 143, rest
+    assert "STOPPED" in rest
+    row = json.loads(out.read_text())["hourglass"]
+    assert row["error"] == "train stopped"
+    assert row["checkpoint_step"] is None and row["train_min"] >= 0.0
+
+
+def _display(step, num_pos, total):
+    return (f"step {step} | lr 0.001000 | cls {total - 0.5:.4f} | reg 0.5000 "
+            f"| total {total:.4f} | num_pos {num_pos:.4f} | grad_norm 1.0\n")
+
+
+def test_detbench_logs_holds_a_resumed_row_against_the_tpu_log(tmp_path):
+    """`detbench_logs.py`: the row's last line of a step counts (a resumed
+    run repeats the steps after its checkpoint), the TPU log's first run
+    counts, `num_pos` is compared exactly, and ``--shift`` pairs a resumed
+    step with the step whose batch it sees again."""
+    import detbench_logs
+
+    train = "$ python -u -m detectax_torch.cli.train_hourglass_voc --x\n"
+    row = tmp_path / "row.txt"
+    row.write_text(
+        train + _display(100, 5, 4.0) + _display(200, 6, 3.0)
+        + _display(300, 9, 9.9)                  # stopped, then redone
+        + train + "resumed from checkpoint at step 200\n"
+        + _display(300, 5, 2.2) + _display(400, 6, 2.0)
+        + "$ python -u -m detectax_torch.cli.evaluate --family x\n")
+    tpu = tmp_path / "tpu.txt"
+    run = (_display(100, 5, 4.0) + _display(200, 6, 2.0)
+           + _display(300, 5, 2.0) + _display(400, 7, 2.0))
+    tpu.write_text(train + run + "$ python -m detectax.cli.evaluate\n"
+                   + train + _display(100, 1, 1.0))
+    got = detbench_logs.main([str(row), str(tpu), "--shift", "200",
+                              "--out", str(tmp_path / "c.json")])
+    assert json.loads((tmp_path / "c.json").read_text()) == got
+    assert got["steps"] == 4 and got["last_step"] == 400
+    assert not got["num_pos_equal"] and got["first_num_pos_diff"] == 400
+    assert got["num_pos_diffs"] == 1
+    assert got["total_ratio_min"] == pytest.approx(1.0)
+    assert got["total_ratio_max"] == pytest.approx(1.5)
+    assert got["mean_total"] == pytest.approx((4.0 + 3.0 + 2.2 + 2.0) / 4)
+    assert got["mean_total_tpu"] == pytest.approx(2.5)
+    # steps 300 and 400 see the batches of steps 100 and 200 again
+    assert got["shifted"] == {"shift": 200, "steps": 2, "first_step": 300,
+                              "last_step": 400, "num_pos_equal": True,
+                              "first_num_pos_diff": None,
+                              "num_pos_diffs": 0}
+    later = detbench_logs.main([str(row), str(tpu), "--from_step", "300"])
+    assert later["steps"] == 2 and later["first_step"] == 300
