@@ -5,7 +5,11 @@ two logs that `benchmarks/run_detbench.py` or the port's
 `detectax_torch.bench.run_detbench` wrote. In the row's log the last line
 of a step counts: a row carried across runs repeats the steps between
 its checkpoint and the stop, and the resumed run's lines are the row's.
-In the TPU log the first run counts (a log may hold the same run twice).
+In the TPU log the first run counts (a log may hold the same run twice),
+or under ``--tpu_run last`` the last line of a step, as in the row's log:
+a TPU log that holds two runs of one recipe whose second is its row's
+(`benchmarks/runs_v2/centernet_heatmap/log.txt`: the first run, lines
+2-55, was evaluated at 0.6448; the second, from line 83, is the row).
 
 For every display step in both logs it compares `num_pos` (exactly: it
 depends on the loader and the assignment alone, not on the weights) and
@@ -15,7 +19,7 @@ resumed at step N restarts its loader from its seed, so its steps N + k
 see the batches of steps k.
 
     python3 detbench_logs.py ROW_LOG TPU_LOG [--from_step 0] [--shift N]
-        [--out f.json]
+        [--tpu_run first|last] [--out f.json]
 
 Prints one JSON object (also written to ``--out``): the steps compared,
 whether `num_pos` was equal at each, the first step where it was not, the
@@ -94,12 +98,16 @@ def main(argv=None) -> dict:
     p.add_argument("tpu_log")
     p.add_argument("--from_step", type=int, default=0)
     p.add_argument("--shift", type=int, default=None)
+    p.add_argument("--tpu_run", choices=("first", "last"), default="first",
+                   help="which run of a TPU log that holds two counts")
     p.add_argument("--out", default=None)
     args = p.parse_args(argv)
     result = compare(display_steps(args.row_log),
-                     display_steps(args.tpu_log, first_run=True),
+                     display_steps(args.tpu_log,
+                                   first_run=args.tpu_run == "first"),
                      from_step=args.from_step, shift=args.shift)
-    result = {"row_log": args.row_log, "tpu_log": args.tpu_log, **result}
+    result = {"row_log": args.row_log, "tpu_log": args.tpu_log,
+              "tpu_run": args.tpu_run, **result}
     print(json.dumps(result))
     if args.out:
         with open(args.out, "w") as f:

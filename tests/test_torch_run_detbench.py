@@ -438,3 +438,36 @@ def test_detbench_logs_holds_a_resumed_row_against_the_tpu_log(tmp_path):
                               "num_pos_diffs": 0}
     later = detbench_logs.main([str(row), str(tpu), "--from_step", "300"])
     assert later["steps"] == 2 and later["first_step"] == 300
+    assert got["tpu_run"] == later["tpu_run"] == "first"
+
+
+def test_detbench_logs_holds_a_row_against_the_tpu_logs_last_run(tmp_path):
+    """``--tpu_run last``: a TPU log holding two runs of one recipe is
+    read as the row's log is, the last line of a step counting, so the
+    row is held against the second run; the default reads the first."""
+    import detbench_logs
+
+    train = "$ python -u -m detectax.cli.train_centernet_heatmap --x\n"
+    evaluate = "$ python -u -m detectax.cli.evaluate --family x\n"
+    tpu = tmp_path / "tpu.txt"
+    tpu.write_text(train + _display(100, 5, 4.0) + _display(200, 6, 3.0)
+                   + evaluate
+                   + train + _display(100, 5, 2.0) + _display(200, 6, 1.5)
+                   + evaluate)
+    row = tmp_path / "row.txt"
+    row.write_text(train + _display(100, 5, 2.0) + _display(200, 7, 3.0))
+    last = detbench_logs.main([str(row), str(tpu), "--tpu_run", "last"])
+    assert last["tpu_run"] == "last" and last["steps"] == 2
+    assert last["mean_total_tpu"] == pytest.approx((2.0 + 1.5) / 2)
+    assert last["total_ratio_min"] == pytest.approx(1.0)
+    assert last["total_ratio_max"] == pytest.approx(2.0)
+    assert last["first_num_pos_diff"] == 200
+    first = detbench_logs.main([str(row), str(tpu)])
+    assert first["mean_total_tpu"] == pytest.approx((4.0 + 3.0) / 2)
+    tpu_path = "benchmarks/runs_v2/centernet_heatmap/log.txt"
+    runs = [detbench_logs.display_steps(os.path.join(REPO, tpu_path),
+                                        first_run=f) for f in (True, False)]
+    assert sorted(runs[0]) == sorted(runs[1]) == list(range(100, 4001, 100))
+    # the row's run (from line 83), then the run evaluated at 0.6448
+    assert runs[1][4000]["total"] == 1.3647
+    assert runs[0][4000]["total"] == 1.2954
