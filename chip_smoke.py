@@ -128,10 +128,14 @@ order:
    and serves one request from the stacked checkpoint; trains 2 steps of
    the TPU DetBench v2 row's command line and evaluates the 256 eval
    images (`cli.evaluate --family stacked_hourglass`) on the kernels and
-   on the plain versions, summaries equal. Phase 3 holds the kernels at
-   these shapes first: the two class terms read in place (`[16, 80, 80,
-   20]` of 24 and `[32, 40, 40, 4, 21]` of 25, each bitwise equal to its
-   contiguous clone) and `dense_nms` at B = 8, M = 6,400 and 12,544 (the
+   on the plain versions, summaries equal; then the dense-crowd split's
+   row (v2_crowd, `crowd_argvs`: up to 128 boxes an image) the same way,
+   2 steps (16 + 16 focal launches), and its 128 eval images at K = 2,048
+   and 200 outputs (16 `dense_nms` launches), every image's detections
+   equal. Phase 3 holds the kernels at these shapes first: the two class
+   terms read in place (`[16, 80, 80, 20]` of 24 and `[32, 40, 40, 4,
+   21]` of 25, each bitwise equal to its contiguous clone) and
+   `dense_nms` at B = 8, M = 6,400 (100 and 200 outputs) and 12,544 (the
    448 bucket);
 12. exported serving bundles: exports the checkpoints of phases 6, 7, 9
    and 11 through `detectax_torch.cli.export_model` (buckets 1 and 8, one
@@ -3033,14 +3037,13 @@ def hourglass_cli_path(ckpt_root):
     return counts, out
 
 
-def hourglass_detbench_path():
-    """The TPU DetBench v2 row's command line (`StackedHourglass`,
-    ``n_filters`` 64, two stacks, bf16, losses over the positives, warmup
-    300, clip 16, Adam 1e-3, batch 16 in microbatches of 2) for 2 steps,
-    then `cli.evaluate --family stacked_hourglass` over the 256 eval images
-    on the kernels (the counted run: the dense kernel once a batch of 8,
-    6,400 candidates an image) and on the plain versions; the summaries
-    must be equal."""
+def stacked_detbench(bench: str, n_eval: int, argvs):
+    """2 steps of `cli.train_hourglass_voc` with a DetBench row's command
+    line, then its `cli.evaluate` over the ``n_eval`` eval images on the
+    kernels (the counted run: the dense kernel once a batch of 8, 6,400
+    candidates an image) and on the plain versions; every image's
+    detections and the summaries must be equal. ``argvs(ckpt_dir,
+    out_dir)`` gives the (train, evaluate) argv."""
     import contextlib
     import io
 
@@ -3053,37 +3056,24 @@ def hourglass_detbench_path():
     with tempfile.TemporaryDirectory() as tmp:
         os.environ["DETECTAX_DETBENCH_CACHE"] = os.path.join(tmp, "cache")
         ckpt_dir = os.path.join(tmp, "ckpt")
+        train_argv, argv = argvs(ckpt_dir, os.path.join(tmp, "out"))
         t0 = time.perf_counter()
-        spec = load_spec(name="detbench_v2")
+        spec = load_spec(name=bench)
         DetBenchDataset("train", spec=spec)
         DetBenchDataset("eval", spec=spec)
         cache_s = time.perf_counter() - t0
         kcommon.reset_launch_counts()
         t1 = time.perf_counter()
-        summary = train_hourglass_voc.main([
-            "--dataset", "detbench_v2", "--max_steps", str(HG_CLI_STEPS),
-            "--backbone", "mobilenetv2", "--display_step", "1",
-            "--step_save", str(HG_CLI_STEPS), "--loss_norm", "pos",
-            "--warmup_steps", "300", "--grad_clip", "16", "--canvas",
-            str(HG_CANVAS), "--batch_size", "16", "--variant", "stacked",
-            "--n_filters", str(HG_WIDTHS["stacked_hourglass"]),
-            "--n_stacks", str(HG_STACKS), "--steps_per_epoch", "1000",
-            "--init_lr", "1e-3", "--bf16", "--ckpt_dir", ckpt_dir,
-            "--out_dir", os.path.join(tmp, "out")])
+        summary = train_hourglass_voc.main(train_argv)
         train_s = time.perf_counter() - t1
         train_counts = kcommon.launch_counts()
         want = HG_CLI_STEPS * 16 // HG_MICROBATCH
         check(summary["final_step"] == HG_CLI_STEPS
               and np.isfinite(summary["total"]),
-              f"DetBench v2 stacked hourglass training: {summary}")
+              f"{bench} stacked hourglass training: {summary}")
         check(train_counts == {"focal_fwd": want, "focal_bwd": want},
-              f"DetBench v2 stacked hourglass training launched "
+              f"{bench} stacked hourglass training launched "
               f"{train_counts}, expected {want} each way")
-        argv = ["--family", "stacked_hourglass", "--dataset", "detbench_v2",
-                "--n_filters", str(HG_WIDTHS["stacked_hourglass"]),
-                "--n_stacks", str(HG_STACKS), "--canvas", str(HG_CANVAS),
-                "--ckpt_dir", ckpt_dir, "--coco_metrics", "--cls_thresh",
-                "0.0"]
         quiet = io.StringIO()
         # two steps from random weights may match no box at all: beside the
         # summaries, every image's detections are compared
@@ -3114,27 +3104,97 @@ def hourglass_detbench_path():
         check(kcommon.launch_counts() == counts,
               "the plain-kernel evaluation launched a kernel")
         del os.environ["DETECTAX_DETBENCH_CACHE"]
-    check(len(seen[0]) == len(seen[1])
+    check(len(seen[0]) == len(seen[1]) == n_eval
           and all(len(a[0]) > 0 and all(np.array_equal(x, y)
                                         for x, y in zip(a, b))
                   for a, b in zip(*seen)),
-          "DetBench v2 evaluation: the detections of the kernels and of "
-          "the plain versions differ")
-    batches = -(-256 // 8)
+          f"{bench} evaluation: the detections of the kernels and of the "
+          f"plain versions differ")
+    batches = -(-n_eval // 8)
     check(counts == {"dense_nms": batches},
-          f"DetBench v2 evaluation launched {counts}, expected {batches}")
-    check(got["num_images"] == 256, f"evaluated {got['num_images']} images")
-    check(got == plain, f"DetBench v2 summaries differ: kernels {got}, "
+          f"{bench} evaluation launched {counts}, expected {batches}")
+    check(got["num_images"] == n_eval, f"evaluated {got['num_images']} images")
+    check(got == plain, f"{bench} summaries differ: kernels {got}, "
                         f"plain versions {plain}")
     return train_counts, counts, {
         "cache_s": cache_s, "train_s": train_s,
         "train": {k: summary[k] for k in ("final_step", "images_per_sec",
                                           "total", "cls", "num_pos",
                                           "grad_norm")},
-        "eval_s": eval_s, "eval_images_per_s": 256 / eval_s,
+        "eval_s": eval_s, "eval_images_per_s": n_eval / eval_s,
         "summary": got, "summaries_equal": True,
         "detections_equal_image_by_image": True,
     }
+
+
+def v2_argvs(ckpt_dir: str, out_dir: str) -> tuple[list, list]:
+    """The TPU DetBench v2 `stacked_hourglass` row's command line
+    (`StackedHourglass`, ``n_filters`` 64, two stacks, bf16, losses over
+    the positives, warmup 300, clip 16, Adam 1e-3, batch 16 in
+    microbatches of 2) for 2 steps, and `cli.evaluate --family
+    stacked_hourglass` with every score kept."""
+    return [
+        "--dataset", "detbench_v2", "--max_steps", str(HG_CLI_STEPS),
+        "--backbone", "mobilenetv2", "--display_step", "1",
+        "--step_save", str(HG_CLI_STEPS), "--loss_norm", "pos",
+        "--warmup_steps", "300", "--grad_clip", "16", "--canvas",
+        str(HG_CANVAS), "--batch_size", "16", "--variant", "stacked",
+        "--n_filters", str(HG_WIDTHS["stacked_hourglass"]),
+        "--n_stacks", str(HG_STACKS), "--steps_per_epoch", "1000",
+        "--init_lr", "1e-3", "--bf16", "--ckpt_dir", ckpt_dir,
+        "--out_dir", out_dir,
+    ], [
+        "--family", "stacked_hourglass", "--dataset", "detbench_v2",
+        "--n_filters", str(HG_WIDTHS["stacked_hourglass"]),
+        "--n_stacks", str(HG_STACKS), "--canvas", str(HG_CANVAS),
+        "--ckpt_dir", ckpt_dir, "--coco_metrics", "--cls_thresh", "0.0",
+    ]
+
+
+def hourglass_detbench_path():
+    """The DetBench v2 `stacked_hourglass` row (`v2_argvs`): 2 steps, then
+    the 256 eval images (`stacked_detbench`)."""
+    return stacked_detbench("detbench_v2", 256, v2_argvs)
+
+
+CROWD_EVAL_IMAGES = 128   # the dense-crowd split's eval images (640 px)
+CROWD_MAX_OUTPUTS = 200
+
+
+def crowd_argvs(ckpt_dir: str, out_dir: str) -> tuple[list, list]:
+    """The (train, evaluate) argv of the DetBench v2_crowd
+    `stacked_hourglass` row, as `run_detbench.family_commands` builds them
+    for ``--bench detbench_v2_crowd`` (up to 128 boxes an image; at
+    evaluation K = 2,048 of the 6,400 candidates and 200 outputs), but
+    for 2 steps, under ``ckpt_dir`` and ``out_dir``, and with every score
+    kept (``--cls_thresh 0.0``) so that NMS has work."""
+    return [
+        "--dataset", "detbench_v2_crowd", "--max_steps", str(HG_CLI_STEPS),
+        "--backbone", "mobilenetv2", "--ckpt_dir", ckpt_dir,
+        "--out_dir", out_dir, "--display_step", "1",
+        "--step_save", str(HG_CLI_STEPS), "--loss_norm", "pos",
+        "--warmup_steps", "300", "--grad_clip", "16", "--canvas",
+        str(HG_CANVAS), "--batch_size", "16", "--variant", "stacked",
+        "--n_filters", str(HG_WIDTHS["stacked_hourglass"]), "--n_stacks",
+        str(HG_STACKS), "--steps_per_epoch", "1000", "--init_lr", "1e-3",
+        "--max_boxes", "128", "--bf16",
+    ], [
+        "--family", "stacked_hourglass", "--dataset", "detbench_v2_crowd",
+        "--backbone", "mobilenetv2", "--ckpt_dir", ckpt_dir,
+        "--coco_metrics", "--out_json", os.path.join(out_dir, "eval.json"),
+        "--n_filters", str(HG_WIDTHS["stacked_hourglass"]), "--n_stacks",
+        str(HG_STACKS), "--max_boxes", "128", "--max_outputs",
+        str(CROWD_MAX_OUTPUTS), "--canvas", str(HG_CANVAS), "--top_k",
+        "2048", "--cls_thresh", "0.0",
+    ]
+
+
+def hourglass_crowd_path():
+    """The DetBench v2_crowd `stacked_hourglass` row (`crowd_argvs`): 2
+    steps on the 2,048 training images of 640 px, then the 128 eval images
+    through `dense_nms` rounds of 200 outputs (`stacked_detbench`)."""
+    return stacked_detbench("detbench_v2_crowd", CROWD_EVAL_IMAGES,
+                            crowd_argvs)
 
 
 # --------------------------------------------------------------------------
@@ -4814,6 +4874,10 @@ def main() -> None:
     hg = np.random.default_rng(SEED + 14)
     dense += [check_dense(hg, 8, m, 100, plain_reps=1)
               for m in (HG_MODELS["hourglass"][1], HG_BIG_CANDIDATES)]
+    # the dense-crowd split's evaluation: 200 outputs an image
+    dense.append(check_dense(np.random.default_rng(SEED + 16), 8,
+                             HG_MODELS["hourglass"][1], CROWD_MAX_OUTPUTS,
+                             plain_reps=1))
     for r in sweep:
         if "ms" in r:
             r["chain_ms"] = r["shape"]["K"] * step_ns * 1e-6
@@ -4940,6 +5004,13 @@ def main() -> None:
     log(f"hourglass phase took {time.perf_counter() - t_hg:.1f} s")
     torch.cuda.empty_cache()
     done("hourglass")
+    hg_crowd_train_counts, hg_crowd_counts, hg_crowd = hourglass_crowd_path()
+    log("hourglass_detbench_v2_crowd " + json.dumps({
+        "card": card, "model": "StackedHourglass n_filters 64, 2 stacks",
+        "canvas": HG_CANVAS, "dtype": "bfloat16", "max_boxes": 128,
+        "max_outputs": CROWD_MAX_OUTPUTS, **hg_crowd}))
+    torch.cuda.empty_cache()
+    done("hourglass_crowd")
 
     t_export = time.perf_counter()
     ex_counts, exported = export_path(ckpts.name)
@@ -5008,6 +5079,8 @@ def main() -> None:
                           hg_cli_counts["request"]["dense_nms"],
                       "stacked_hourglass_detbench_v2_evaluation":
                           hg_db_counts["dense_nms"],
+                      "stacked_hourglass_detbench_v2_crowd_evaluation":
+                          hg_crowd_counts["dense_nms"],
                       "fcos_exported_serving":
                           ex_counts["fcos"]["dense_nms"],
                       "centernet_exported_serving":
@@ -5048,6 +5121,8 @@ def main() -> None:
                       hg_cli_counts["stacked_multi_scale"]["focal_fwd"],
                   "stacked_hourglass_detbench_v2_bf16_training":
                       hg_db_train_counts["focal_fwd"],
+                  "stacked_hourglass_detbench_v2_crowd_bf16_training":
+                      hg_crowd_train_counts["focal_fwd"],
                   "fcos_training_nccl_one_rank":
                       dp_counts["nccl_fp32"]["focal_fwd"],
                   "fcos_bf16_training_nccl_one_rank":
@@ -5089,6 +5164,7 @@ def main() -> None:
                                 + hg_cli_counts["stacked_multi_scale"][
                                     "focal_bwd"]
                                 + hg_db_train_counts["focal_bwd"]
+                                + hg_crowd_train_counts["focal_bwd"]
                                 + dp_counts["nccl_fp32"]["focal_bwd"]
                                 + dp_counts["nccl_bf16"]["focal_bwd"]
                                 + sum(c["focal_bwd"]

@@ -40,6 +40,18 @@ from detectax_torch.train.driver import load_backbone_weights
 from detectax_torch.train.loop import create_train_state
 from detectax_torch.train.schedules import make_optimizer, make_schedule
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """torch on one thread: the models are tiny, and beside the suite's
+    other workers a pool of threads a process waits on busy cores at every
+    operation (tens of times slower)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TRUNK = os.path.join(REPO, "benchmarks", "runs", "pretrain_r50",
                      "backbone.msgpack")

@@ -53,6 +53,18 @@ from detectax_torch.ops import assign as TA
 from detectax_torch.tools import from_flax as FF
 from detectax_torch.train import losses as TTL
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """torch on one thread: the models are tiny, and beside the suite's
+    other workers a pool of threads a process waits on busy cores at every
+    operation (tens of times slower)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 IMG, NC, BATCH = 64, 3, 2
 F32, BF16 = torch.float32, torch.bfloat16
 FWD_RTOL, FWD_ATOL = 1e-4, 1e-5

@@ -15,6 +15,16 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "msgpack",
              "detectax", "benchmarks")
 
+def _child_env():
+    """A fresh interpreter's environment: the repository on its path, and
+    torch on one thread (the programs are tiny, and beside the suite's
+    other workers a pool of threads waits on busy cores)."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    env["OMP_NUM_THREADS"] = "1"
+    return env
+
+
 SERVE_ONE_REQUEST = r"""
 import sys
 import numpy as np
@@ -56,8 +66,7 @@ def test_port_serves_without_importing_jax_or_detectax(tmp_path):
     """One request served and one step trained in a fresh interpreter:
     no forbidden module is imported, `triton` is not imported and no
     kernel is built along the way."""
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    env["PYTHONPATH"] = REPO
+    env = _child_env()
     res = subprocess.run(
         [sys.executable, "-c", SERVE_ONE_REQUEST, str(tmp_path)], cwd=REPO,
         env=env, capture_output=True, text=True, timeout=300,
@@ -114,8 +123,7 @@ def test_centernet_slice_runs_without_jax_or_a_build(tmp_path):
     """Both CenterNet families served and trained for a step in a fresh
     interpreter on the CPU: no forbidden module, no `triton`, no build and
     no kernel launch (the wrappers ran their plain versions)."""
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    env["PYTHONPATH"] = REPO
+    env = _child_env()
     res = subprocess.run(
         [sys.executable, "-c", CENTERNET_SLICE, str(tmp_path)], cwd=REPO,
         env=env, capture_output=True, text=True, timeout=300,
@@ -156,8 +164,7 @@ def test_exported_bundle_replays_without_model_code(tmp_path):
     save_bundle(str(tmp_path / "b"), model, canvas=64, buckets=(2,),
                 export_device="cpu", fused=True, top_k=32, max_outputs=8,
                 score_thresh=0.0)
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    env["PYTHONPATH"] = REPO
+    env = _child_env()
     res = subprocess.run(
         [sys.executable, "-c", REPLAY_EXPORTED_BUNDLE, str(tmp_path / "b")],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
@@ -209,8 +216,7 @@ def test_every_port_module_imports_without_a_build():
         "import detectax_torch.data.native_loader as nl\n"
         "assert nl._lib is None and nl.build_seconds() is None\n"
         "print('imported', len(sys.modules))\n")
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    env["PYTHONPATH"] = REPO
+    env = _child_env()
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
@@ -232,10 +238,26 @@ def _imported_roots(path):
 def _port_sources():
     files = glob.glob(os.path.join(REPO, "detectax_torch", "**", "*.py"),
                       recursive=True)
-    scripts = ["chip_smoke.py", "bench_torch.py", "trunk_bn_stats.py",
-               "detbench_fcos_r50.py", "detbench_retinanet.py",
-               "detbench_hourglass.py", "detbench_logs.py"]
-    return sorted(files) + [os.path.join(REPO, f) for f in scripts]
+    return sorted(files) + [os.path.join(REPO, f) for f in PORT_SCRIPTS]
+
+
+# the port's programs at the root of the repository
+PORT_SCRIPTS = ["chip_smoke.py", "bench_torch.py", "trunk_bn_stats.py",
+                "detbench_fcos_r50.py", "detbench_retinanet.py",
+                "detbench_hourglass.py", "detbench_logs.py", "kernel_ab.py"]
+
+
+def test_every_root_program_of_the_port_is_scanned():
+    """A program at the root that names the port (or the smoke script it
+    drives) is one of `PORT_SCRIPTS`, so that the scans below read it."""
+    named = set()
+    for path in glob.glob(os.path.join(REPO, "*.py")):
+        with open(path) as f:
+            text = f.read()
+        if "detectax_torch" in text or "import chip_smoke" in text:
+            named.add(os.path.basename(path))
+    assert "kernel_ab.py" in named and "chip_smoke.py" in named
+    assert named <= set(PORT_SCRIPTS), sorted(named - set(PORT_SCRIPTS))
 
 
 def test_static_scan_finds_no_forbidden_import():
@@ -297,6 +319,42 @@ def test_default_device_is_cuda_and_never_falls_back(tmp_path):
     ):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
+
+
+# every CLI entry point of the port with the arguments it needs to start
+ENTRY_POINTS = {
+    "train_fcos": [], "train_centernet_heatmap": [],
+    "train_centernet_crowdhuman": [], "train_fcos_center_voc": [],
+    "train_fcos_center_v1_voc": [], "train_hourglass_voc": [],
+    "train_retinanet_coco": [],
+    "evaluate": ["--family", "fcos", "--dataset", "detbench"],
+    "export_model": ["--family", "fcos", "--num_classes", "3",
+                     "--out_dir", "{tmp}/bundle"],
+    "infer_fcos": ["--img_file", "x.jpg", "--weights", "w.npz"],
+    "infer_centernet": ["--img_file", "x.jpg", "--weights", "w.npz"],
+    "infer_retinanet": ["--img_file", "x.jpg", "--weights", "w.npz"],
+}
+
+
+@pytest.mark.parametrize("entry", sorted(ENTRY_POINTS))
+def test_every_cli_entry_point_goes_to_the_card_unless_asked(entry,
+                                                             tmp_path):
+    """Without ``--device`` a CLI resolves the CUDA device before any
+    work: with none available it raises instead of running on the CPU."""
+    import importlib
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is available: the CLI would run on it")
+    mod = importlib.import_module(f"detectax_torch.cli.{entry}")
+    argv = [a.format(tmp=tmp_path) for a in ENTRY_POINTS[entry]]
+    if entry.startswith("train_"):
+        argv += ["--max_steps", "1", "--synthetic_n", "4",
+                 "--out_dir", str(tmp_path / "out")]
+    if entry not in ("infer_fcos", "infer_centernet", "infer_retinanet"):
+        argv += ["--ckpt_dir", str(tmp_path / "ckpt")]
+    with pytest.raises(RuntimeError, match="CUDA device by default"):
+        mod.main(argv)
+    assert not (tmp_path / "ckpt").exists()
 
 
 def test_kernel_build_reports_a_missing_compiler(monkeypatch):

@@ -29,6 +29,18 @@ from detectax_torch.ops.pool import max_pool_3x3_s2 as t_max_pool
 from detectax_torch.ops.pool import same_pad
 from detectax_torch.tools import from_flax as FF
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """torch on one thread: the models are tiny, and beside the suite's
+    other workers a pool of threads a process waits on busy cores at every
+    operation (tens of times slower)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ATOL = 1e-4
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
