@@ -100,9 +100,10 @@ order:
    3 steps on the kernel path and 3 on the plain path
    (`retinanet_assign`, `retinanet_loss`: the five levels' class channels,
    81 of 85 columns, in one grouped focal call; SGD piecewise, clip 1.0);
-   trains 2 steps through `cli.train_retinanet_coco` and serves one
-   request from its checkpoint; trains 4 steps of `cli.train_retinanet_coco
-   --dataset detbench_v2 --backbone mobilenetv2 --bf16` and evaluates the
+   trains 2 steps through `cli.train_retinanet_coco` (its zero-target
+   filter on) and serves one request from its checkpoint; trains 4 steps
+   of `cli.train_retinanet_coco --dataset detbench_v2 --backbone
+   mobilenetv2 --bf16 --no-skip_zero_target` and evaluates the
    256 eval images (`cli.evaluate --family retinanet`) on the kernels and
    on the plain versions, summaries equal. Phase 3 holds the kernels at
    these shapes first: the RetinaNet focal group (63,638,784 elements,
@@ -129,14 +130,18 @@ order:
    the TPU DetBench v2 row's command line and evaluates the 256 eval
    images (`cli.evaluate --family stacked_hourglass`) on the kernels and
    on the plain versions, summaries equal; then the dense-crowd split's
-   row (v2_crowd, `crowd_argvs`: up to 128 boxes an image) the same way,
+   row (v2_crowd, `row_argvs`: up to 128 boxes an image) the same way,
    2 steps (16 + 16 focal launches), and its 128 eval images at K = 2,048
    and 200 outputs (16 `dense_nms` launches), every image's detections
-   equal. Phase 3 holds the kernels at these shapes first: the two class
-   terms read in place (`[16, 80, 80, 20]` of 24 and `[32, 40, 40, 4,
-   21]` of 25, each bitwise equal to its contiguous clone) and
-   `dense_nms` at B = 8, M = 6,400 (100 and 200 outputs) and 12,544 (the
-   448 bucket);
+   equal; then the crowd `HourglassNet` row (`row_argvs(...,
+   "hourglass", ...)`, batch 32, the sigmoid class loss: no focal launch)
+   on the same
+   cache, 2 steps and the 128 eval images the same way (16 more
+   `dense_nms` launches). Phase 3 holds the kernels at these shapes
+   first: the two class terms read in place (`[16, 80, 80, 20]` of 24
+   and `[32, 40, 40, 4, 21]` of 25, each bitwise equal to its contiguous
+   clone) and `dense_nms` at B = 8, M = 6,400 (100 and 200 outputs) and
+   12,544 (the 448 bucket);
 12. exported serving bundles: exports the checkpoints of phases 6, 7, 9
    and 11 through `detectax_torch.cli.export_model` (buckets 1 and 8, one
    `torch.export` program a bucket with the weights as call arguments;
@@ -212,8 +217,9 @@ order:
    `detectax_torch.bench.pretrain_backbone` for MobileNetV2 at batch 64,
    crops of 128 px (losses finite, the saved trunk's tree that of the
    committed JAX trunk); `python -m detectax_torch.bench.run_detbench
-   --families centernet_s8 centernet_heatmap --steps 4` from that trunk as
-   a subprocess (both rows written, the trunk loaded); the
+   --families centernet_s8` and `--families centernet_heatmap`, `--steps
+   4`, from that trunk as two subprocesses at once (both rows written, the
+   trunk loaded); the
    centernet_heatmap row's evaluation in this process on the kernels and
    on their plain versions (summaries equal, one `dense_nms` and one
    `peak` launch a batch, exactly);
@@ -2062,7 +2068,7 @@ def detbench_path():
     `cli.evaluate --dataset detbench` over the 256-image eval split twice:
     on the kernels (the counted run: the fused dense kernel, one launch a
     batch of 8) and with every kernel on its plain version; the two
-    summaries must be equal. DetBench is generated into a temporary cache.
+    summaries must be equal. DetBench lies in the run's cache (`main`).
     Four steps leave the scores near the focal prior, so the evaluation
     keeps every candidate (no score threshold): each image then has 100
     detections to compare."""
@@ -2073,7 +2079,6 @@ def detbench_path():
     from detectax_torch.data.detbench import DetBenchDataset
 
     with tempfile.TemporaryDirectory() as tmp:
-        os.environ["DETECTAX_DETBENCH_CACHE"] = os.path.join(tmp, "cache")
         ckpt_dir = os.path.join(tmp, "ckpt")
         init = (["--init_backbone", TRUNK, "--freeze_bn"]
                 if os.path.exists(TRUNK) else [])
@@ -2115,7 +2120,6 @@ def detbench_path():
             want = evaluate.main(argv + ["--plain_kernels"])
         check(kcommon.launch_counts() == counts,
               "the plain-kernel evaluation launched a kernel")
-        del os.environ["DETECTAX_DETBENCH_CACHE"]
     batches = -(-256 // 8)
     check(counts == {"dense_nms": batches},
           f"DetBench evaluation launched {counts}, expected {batches} "
@@ -2588,7 +2592,10 @@ def retinanet_detbench_path():
     --family retinanet` over the 256 eval images on the kernels (the
     counted run: the dense kernel once a batch of 8, 49,104 candidates an
     image, class-aware) and on the plain versions; the summaries must be
-    equal. No score threshold, so that every image keeps 100 detections."""
+    equal. No score threshold, so that every image keeps 100 detections.
+    The zero-target filter is off: it is host numpy, the CLI phase runs
+    it, and over the split's 4,096 images it took most of this phase
+    (59-78 s of training's 4 steps on the H100 machine)."""
     import contextlib
     import io
 
@@ -2596,7 +2603,6 @@ def retinanet_detbench_path():
     from detectax_torch.data.detbench import DetBenchDataset, load_spec
 
     with tempfile.TemporaryDirectory() as tmp:
-        os.environ["DETECTAX_DETBENCH_CACHE"] = os.path.join(tmp, "cache")
         ckpt_dir = os.path.join(tmp, "ckpt")
         t0 = time.perf_counter()
         spec = load_spec(name="detbench_v2")
@@ -2610,8 +2616,8 @@ def retinanet_detbench_path():
             "--bf16", "--canvas", str(RN_CANVAS), "--batch_size", "16",
             "--max_steps", str(RN_DETBENCH_STEPS), "--display_step", "2",
             "--step_save", str(RN_DETBENCH_STEPS), "--loss_norm", "pos",
-            "--grad_clip", "16", "--ckpt_dir", ckpt_dir,
-            "--out_dir", os.path.join(tmp, "out"),
+            "--grad_clip", "16", "--no-skip_zero_target",
+            "--ckpt_dir", ckpt_dir, "--out_dir", os.path.join(tmp, "out"),
         ])
         train_s = time.perf_counter() - t1
         train_counts = kcommon.launch_counts()
@@ -2637,7 +2643,6 @@ def retinanet_detbench_path():
             want = evaluate.main(argv + ["--plain_kernels"])
         check(kcommon.launch_counts() == counts,
               "the plain-kernel evaluation launched a kernel")
-        del os.environ["DETECTAX_DETBENCH_CACHE"]
     batches = -(-256 // 8)
     check(counts == {"dense_nms": batches},
           f"DetBench v2 evaluation launched {counts}, expected {batches}")
@@ -2645,7 +2650,7 @@ def retinanet_detbench_path():
     check(got == want, f"DetBench v2 summaries differ: kernels {got}, "
                        f"plain versions {want}")
     return train_counts, counts, {
-        "cache_s": cache_s, "train_s_with_filter": train_s,
+        "cache_s": cache_s, "train_s": train_s,
         "train": {k: summary[k] for k in ("final_step", "images_per_sec",
                                           "total", "cls", "num_pos",
                                           "grad_norm")},
@@ -3037,13 +3042,24 @@ def hourglass_cli_path(ckpt_root):
     return counts, out
 
 
-def stacked_detbench(bench: str, n_eval: int, argvs):
+# a DetBench row's launches in 2 training steps: `StackedHourglass`'s
+# focal class loss once a microbatch of 2 each way (batch 16);
+# `HourglassNet`'s sigmoid class loss runs no kernel
+ROW_TRAIN_LAUNCHES = {
+    "stacked_hourglass": {"focal_fwd": HG_CLI_STEPS * 16 // HG_MICROBATCH,
+                          "focal_bwd": HG_CLI_STEPS * 16 // HG_MICROBATCH},
+    "hourglass": {},
+}
+
+
+def hourglass_detbench_row(bench: str, n_eval: int, argvs,
+                           train_launches: dict):
     """2 steps of `cli.train_hourglass_voc` with a DetBench row's command
-    line, then its `cli.evaluate` over the ``n_eval`` eval images on the
-    kernels (the counted run: the dense kernel once a batch of 8, 6,400
-    candidates an image) and on the plain versions; every image's
-    detections and the summaries must be equal. ``argvs(ckpt_dir,
-    out_dir)`` gives the (train, evaluate) argv."""
+    line, launching ``train_launches``, then its `cli.evaluate` over the
+    ``n_eval`` eval images on the kernels (the counted run: the dense
+    kernel once a batch of 8, 6,400 candidates an image) and on the plain
+    versions; every image's detections and the summaries must be equal.
+    ``argvs(ckpt_dir, out_dir)`` gives the (train, evaluate) argv."""
     import contextlib
     import io
 
@@ -3054,9 +3070,9 @@ def stacked_detbench(bench: str, n_eval: int, argvs):
     )
 
     with tempfile.TemporaryDirectory() as tmp:
-        os.environ["DETECTAX_DETBENCH_CACHE"] = os.path.join(tmp, "cache")
         ckpt_dir = os.path.join(tmp, "ckpt")
         train_argv, argv = argvs(ckpt_dir, os.path.join(tmp, "out"))
+        family = argv[argv.index("--family") + 1]
         t0 = time.perf_counter()
         spec = load_spec(name=bench)
         DetBenchDataset("train", spec=spec)
@@ -3067,13 +3083,12 @@ def stacked_detbench(bench: str, n_eval: int, argvs):
         summary = train_hourglass_voc.main(train_argv)
         train_s = time.perf_counter() - t1
         train_counts = kcommon.launch_counts()
-        want = HG_CLI_STEPS * 16 // HG_MICROBATCH
         check(summary["final_step"] == HG_CLI_STEPS
               and np.isfinite(summary["total"]),
-              f"{bench} stacked hourglass training: {summary}")
-        check(train_counts == {"focal_fwd": want, "focal_bwd": want},
-              f"{bench} stacked hourglass training launched "
-              f"{train_counts}, expected {want} each way")
+              f"{bench} {family} training: {summary}")
+        check(train_counts == train_launches,
+              f"{bench} {family} training launched {train_counts}, "
+              f"expected {train_launches}")
         quiet = io.StringIO()
         # two steps from random weights may match no box at all: beside the
         # summaries, every image's detections are compared
@@ -3103,7 +3118,6 @@ def stacked_detbench(bench: str, n_eval: int, argvs):
             evaluator_cls.add_image = add_image
         check(kcommon.launch_counts() == counts,
               "the plain-kernel evaluation launched a kernel")
-        del os.environ["DETECTAX_DETBENCH_CACHE"]
     check(len(seen[0]) == len(seen[1]) == n_eval
           and all(len(a[0]) > 0 and all(np.array_equal(x, y)
                                         for x, y in zip(a, b))
@@ -3127,74 +3141,54 @@ def stacked_detbench(bench: str, n_eval: int, argvs):
     }
 
 
-def v2_argvs(ckpt_dir: str, out_dir: str) -> tuple[list, list]:
-    """The TPU DetBench v2 `stacked_hourglass` row's command line
-    (`StackedHourglass`, ``n_filters`` 64, two stacks, bf16, losses over
-    the positives, warmup 300, clip 16, Adam 1e-3, batch 16 in
-    microbatches of 2) for 2 steps, and `cli.evaluate --family
-    stacked_hourglass` with every score kept."""
-    return [
-        "--dataset", "detbench_v2", "--max_steps", str(HG_CLI_STEPS),
-        "--backbone", "mobilenetv2", "--display_step", "1",
-        "--step_save", str(HG_CLI_STEPS), "--loss_norm", "pos",
-        "--warmup_steps", "300", "--grad_clip", "16", "--canvas",
-        str(HG_CANVAS), "--batch_size", "16", "--variant", "stacked",
-        "--n_filters", str(HG_WIDTHS["stacked_hourglass"]),
-        "--n_stacks", str(HG_STACKS), "--steps_per_epoch", "1000",
-        "--init_lr", "1e-3", "--bf16", "--ckpt_dir", ckpt_dir,
-        "--out_dir", out_dir,
-    ], [
-        "--family", "stacked_hourglass", "--dataset", "detbench_v2",
-        "--n_filters", str(HG_WIDTHS["stacked_hourglass"]),
-        "--n_stacks", str(HG_STACKS), "--canvas", str(HG_CANVAS),
-        "--ckpt_dir", ckpt_dir, "--coco_metrics", "--cls_thresh", "0.0",
-    ]
-
-
-def hourglass_detbench_path():
-    """The DetBench v2 `stacked_hourglass` row (`v2_argvs`): 2 steps, then
-    the 256 eval images (`stacked_detbench`)."""
-    return stacked_detbench("detbench_v2", 256, v2_argvs)
-
-
 CROWD_EVAL_IMAGES = 128   # the dense-crowd split's eval images (640 px)
 CROWD_MAX_OUTPUTS = 200
 
 
-def crowd_argvs(ckpt_dir: str, out_dir: str) -> tuple[list, list]:
-    """The (train, evaluate) argv of the DetBench v2_crowd
-    `stacked_hourglass` row, as `run_detbench.family_commands` builds them
-    for ``--bench detbench_v2_crowd`` (up to 128 boxes an image; at
-    evaluation K = 2,048 of the 6,400 candidates and 200 outputs), but
-    for 2 steps, under ``ckpt_dir`` and ``out_dir``, and with every score
-    kept (``--cls_thresh 0.0``) so that NMS has work."""
-    return [
-        "--dataset", "detbench_v2_crowd", "--max_steps", str(HG_CLI_STEPS),
-        "--backbone", "mobilenetv2", "--ckpt_dir", ckpt_dir,
-        "--out_dir", out_dir, "--display_step", "1",
-        "--step_save", str(HG_CLI_STEPS), "--loss_norm", "pos",
-        "--warmup_steps", "300", "--grad_clip", "16", "--canvas",
-        str(HG_CANVAS), "--batch_size", "16", "--variant", "stacked",
-        "--n_filters", str(HG_WIDTHS["stacked_hourglass"]), "--n_stacks",
-        str(HG_STACKS), "--steps_per_epoch", "1000", "--init_lr", "1e-3",
-        "--max_boxes", "128", "--bf16",
-    ], [
-        "--family", "stacked_hourglass", "--dataset", "detbench_v2_crowd",
-        "--backbone", "mobilenetv2", "--ckpt_dir", ckpt_dir,
-        "--coco_metrics", "--out_json", os.path.join(out_dir, "eval.json"),
-        "--n_filters", str(HG_WIDTHS["stacked_hourglass"]), "--n_stacks",
-        str(HG_STACKS), "--max_boxes", "128", "--max_outputs",
-        str(CROWD_MAX_OUTPUTS), "--canvas", str(HG_CANVAS), "--top_k",
-        "2048", "--cls_thresh", "0.0",
-    ]
+def row_argvs(bench: str, family: str, ckpt_dir: str,
+              out_dir: str) -> tuple[list, list]:
+    """The (train, evaluate) argv of the DetBench row of ``family`` on
+    ``bench``, as `run_detbench.family_commands` builds them (on
+    v2_crowd: up to 128 boxes an image; at evaluation K = 2,048 of the
+    6,400 candidates and 200 outputs), but for 2 steps, under ``ckpt_dir``
+    and ``out_dir``, and with every score kept (``--cls_thresh 0.0``) so
+    that NMS has work."""
+    from detectax_torch.bench import run_detbench
+
+    args = run_detbench.parse_args([
+        "--bench", bench, "--run_root", out_dir,
+        "--out", os.path.join(out_dir, "results.json")])
+    run = {"--max_steps": str(HG_CLI_STEPS), "--display_step": "1",
+           "--step_save": str(HG_CLI_STEPS), "--ckpt_dir": ckpt_dir,
+           "--out_dir": out_dir,
+           "--out_json": os.path.join(out_dir, "eval.json")}
+
+    def with_run(cmd):
+        argv = cmd[cmd.index("-m") + 2:]
+        return [run.get(flag, a) for flag, a in zip([None, *argv], argv)]
+
+    train, evaluate = run_detbench.family_commands(family, args)
+    return with_run(train), with_run(evaluate) + ["--cls_thresh", "0.0"]
 
 
-def hourglass_crowd_path():
-    """The DetBench v2_crowd `stacked_hourglass` row (`crowd_argvs`): 2
-    steps on the 2,048 training images of 640 px, then the 128 eval images
-    through `dense_nms` rounds of 200 outputs (`stacked_detbench`)."""
-    return stacked_detbench("detbench_v2_crowd", CROWD_EVAL_IMAGES,
-                            crowd_argvs)
+def hourglass_detbench_path():
+    """The DetBench v2 `stacked_hourglass` row (`row_argvs`: batch 16 in
+    the trainer's microbatches of 2): 2 steps, then the 256 eval images
+    (`hourglass_detbench_row`)."""
+    return hourglass_detbench_row(
+        "detbench_v2", 256,
+        functools.partial(row_argvs, "detbench_v2", "stacked_hourglass"),
+        ROW_TRAIN_LAUNCHES["stacked_hourglass"])
+
+
+def hourglass_crowd_path(family: str):
+    """The DetBench v2_crowd row of ``family`` (`row_argvs`): 2 steps on
+    the 2,048 training images of 640 px, then the 128 eval images through
+    `dense_nms` rounds of 200 outputs (`hourglass_detbench_row`)."""
+    return hourglass_detbench_row(
+        "detbench_v2_crowd", CROWD_EVAL_IMAGES,
+        functools.partial(row_argvs, "detbench_v2_crowd", family),
+        ROW_TRAIN_LAUNCHES[family])
 
 
 # --------------------------------------------------------------------------
@@ -3354,24 +3348,44 @@ TORCHRUN = (sys.executable, "-m", "torch.distributed.run", "--standalone",
             "--nproc_per_node", "1")
 
 
-def run_process(cmd, timeout: float) -> str:
-    """Run ``cmd`` from the checkout in a session of its own; kill the
-    session (torchrun and its workers) if it runs past ``timeout``.
-    Returns its output; fails the run on a non-zero exit."""
+def run_processes(cmds, timeout: float) -> list[str]:
+    """Run ``cmds`` at once from the checkout, each in a session of its
+    own with its output in a file; kill every session (torchrun and its
+    workers) still running at ``timeout``. Returns their outputs; fails
+    the run on a non-zero exit."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         p for p in (REPO, os.environ.get("PYTHONPATH")) if p))
-    proc = subprocess.Popen(cmd, cwd=REPO, env=env, text=True,
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            start_new_session=True)
-    try:
-        out, _ = proc.communicate(timeout=timeout)
-    except subprocess.TimeoutExpired:
-        os.killpg(proc.pid, 9)
-        out, _ = proc.communicate()
-        fail(f"{' '.join(cmd[:8])} ran past {timeout} s:\n{out[-4000:]}")
-    check(proc.returncode == 0,
-          f"{' '.join(cmd[:8])} exited {proc.returncode}:\n{out[-6000:]}")
-    return out
+    files = [tempfile.TemporaryFile("w+") for _ in cmds]
+    procs = [subprocess.Popen(cmd, cwd=REPO, env=env, text=True, stdout=f,
+                              stderr=subprocess.STDOUT,
+                              start_new_session=True)
+             for cmd, f in zip(cmds, files)]
+    deadline = time.monotonic() + timeout
+    late = []
+    for cmd, proc in zip(cmds, procs):
+        try:
+            proc.wait(timeout=max(0.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, 9)
+            proc.wait()
+            late.append(cmd)
+    outs = []
+    for f in files:
+        f.seek(0)
+        outs.append(f.read())
+        f.close()
+    for cmd, proc, out in zip(cmds, procs, outs):
+        check(cmd not in late,
+              f"{' '.join(cmd[:8])} ran past {timeout} s:\n{out[-4000:]}")
+        check(proc.returncode == 0,
+              f"{' '.join(cmd[:8])} exited {proc.returncode}:\n"
+              f"{out[-6000:]}")
+    return outs
+
+
+def run_process(cmd, timeout: float) -> str:
+    """`run_processes` of one command."""
+    return run_processes([cmd], timeout)[0]
 
 
 def step_one(out_dir: str) -> dict:
@@ -4304,9 +4318,10 @@ def pretrain_driver_path() -> tuple[dict, dict]:
        steps (10 of warmup) at batch 64, crops of 128 px, 2 evaluation
        batches: every loss finite, the saved trunk's tree (keys, shapes,
        dtypes) that of the committed JAX trunk; ms a step and crops/s.
-    2. `python -m detectax_torch.bench.run_detbench --families
-       centernet_s8 centernet_heatmap --steps 4 --trunk <that .npz>` as a
-       subprocess, into a temporary run root and DetBench cache: both rows
+    2. `python -m detectax_torch.bench.run_detbench --families <family>
+       --steps 4 --trunk <that .npz>` for centernet_s8 and for
+       centernet_heatmap, two subprocesses at once into one temporary run
+       root (a results file each), on the run's DetBench cache: both rows
        without an error, 4 training steps, mAP@0.5 in [0, 1], and the
        centernet_s8 log saying that the trunk was loaded.
     3. The centernet_heatmap row's evaluate argv from `family_commands`
@@ -4326,7 +4341,6 @@ def pretrain_driver_path() -> tuple[dict, dict]:
 
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        os.environ["DETECTAX_DETBENCH_CACHE"] = os.path.join(tmp, "cache")
         t0 = time.perf_counter()
         DetBenchDataset("train")
         DetBenchDataset("eval")
@@ -4349,19 +4363,23 @@ def pretrain_driver_path() -> tuple[dict, dict]:
               f"{[k for k in got if k in want and got[k] != want[k]][:8]}")
 
         run_root = os.path.join(tmp, "runs")
-        out = os.path.join(tmp, "RESULTS_detbench_v1.json")
-        driver_argv = ["--families", *DRIVER_FAMILIES, "--steps",
-                       str(DRIVER_STEPS), "--trunk", trunk, "--run_root",
-                       run_root, "--out", out]
+        driver_argv = ["--steps", str(DRIVER_STEPS), "--trunk", trunk,
+                       "--run_root", run_root]
+        outs = {fam: os.path.join(tmp, f"RESULTS_{fam}.json")
+                for fam in DRIVER_FAMILIES}
         t1 = time.perf_counter()
-        run_process([sys.executable, "-m",
-                     "detectax_torch.bench.run_detbench", *driver_argv],
-                    timeout=600)
+        # a driver a family, all at once: a row is two processes that
+        # mostly start up (one after the other, the two took 130 s)
+        run_processes([[sys.executable, "-m",
+                        "detectax_torch.bench.run_detbench", "--families",
+                        fam, *driver_argv, "--out", outs[fam]]
+                       for fam in DRIVER_FAMILIES], timeout=600)
         driver_s = time.perf_counter() - t1
-        with open(out) as f:
-            rows = json.load(f)
+        rows = {}
         for fam in DRIVER_FAMILIES:
-            row = rows.get(fam, {})
+            with open(outs[fam]) as f:
+                rows[fam] = json.load(f).get(fam, {})
+            row = rows[fam]
             check("error" not in row and row.get("train_steps")
                   == DRIVER_STEPS and 0.0 <= row.get("mAP@0.5", -1) <= 1.0,
                   f"the driver's {fam} row: {row}")
@@ -4388,7 +4406,6 @@ def pretrain_driver_path() -> tuple[dict, dict]:
             plain = evaluate.main(argv + ["--plain_kernels"])
         check(kcommon.launch_counts() == counts,
               "the plain-kernel evaluation launched a kernel")
-        del os.environ["DETECTAX_DETBENCH_CACHE"]
     batches = -(-EVAL_IMAGES // EVAL_BATCH)
     check(counts == {"dense_nms": batches, "peak": batches},
           f"the centernet_heatmap evaluation launched {counts}, expected "
@@ -4771,6 +4788,11 @@ def main() -> None:
             "chip_smoke.py needs a CUDA device; none is available\n")
         sys.exit(1)
     t_start = time.perf_counter()
+    # one DetBench cache for the run (DetBench keys a split by version,
+    # split, seed and size): each split is generated once, by the first
+    # phase that reads it
+    detbench_cache = tempfile.TemporaryDirectory()
+    os.environ["DETECTAX_DETBENCH_CACHE"] = detbench_cache.name
     # seconds a phase, each from the end of the one before; printed at the
     # end to show which phases use the run's time
     phase_s, t_mark = {}, [t_start]
@@ -5004,13 +5026,21 @@ def main() -> None:
     log(f"hourglass phase took {time.perf_counter() - t_hg:.1f} s")
     torch.cuda.empty_cache()
     done("hourglass")
-    hg_crowd_train_counts, hg_crowd_counts, hg_crowd = hourglass_crowd_path()
+    hg_crowd_train_counts, hg_crowd_counts, hg_crowd = hourglass_crowd_path(
+        "stacked_hourglass")
     log("hourglass_detbench_v2_crowd " + json.dumps({
         "card": card, "model": "StackedHourglass n_filters 64, 2 stacks",
         "canvas": HG_CANVAS, "dtype": "bfloat16", "max_boxes": 128,
         "max_outputs": CROWD_MAX_OUTPUTS, **hg_crowd}))
     torch.cuda.empty_cache()
     done("hourglass_crowd")
+    _, hgn_crowd_counts, hgn_crowd = hourglass_crowd_path("hourglass")
+    log("hourglass_net_detbench_v2_crowd " + json.dumps({
+        "card": card, "model": "HourglassNet n_filters 12",
+        "canvas": HG_CANVAS, "dtype": "bfloat16", "max_boxes": 128,
+        "max_outputs": CROWD_MAX_OUTPUTS, **hgn_crowd}))
+    torch.cuda.empty_cache()
+    done("hourglass_net_crowd")
 
     t_export = time.perf_counter()
     ex_counts, exported = export_path(ckpts.name)
@@ -5052,6 +5082,9 @@ def main() -> None:
         "families": DRIVER_FAMILIES, "driver_steps": DRIVER_STEPS,
         **pretrain_driver}))
     torch.cuda.empty_cache()
+    # the last DetBench reader is done
+    del os.environ["DETECTAX_DETBENCH_CACHE"]
+    detbench_cache.cleanup()
     done("pretrain_and_detbench_driver")
 
     lv_counts, lever_programs = lever_programs_path()
@@ -5081,6 +5114,8 @@ def main() -> None:
                           hg_db_counts["dense_nms"],
                       "stacked_hourglass_detbench_v2_crowd_evaluation":
                           hg_crowd_counts["dense_nms"],
+                      "hourglass_detbench_v2_crowd_evaluation":
+                          hgn_crowd_counts["dense_nms"],
                       "fcos_exported_serving":
                           ex_counts["fcos"]["dense_nms"],
                       "centernet_exported_serving":
