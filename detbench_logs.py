@@ -25,7 +25,15 @@ Prints one JSON object (also written to ``--out``): the steps compared,
 whether `num_pos` was equal at each, the first step where it was not, the
 range of the ratio of each loss, and the mean `total` of both logs over
 the compared steps; with ``--shift`` the same `num_pos` summary of the
-shifted pairs under ``"shifted"``.
+shifted pairs under ``"shifted"``. It also holds the recipe: each
+training command line of the row's log (``$ ... -m ...``, not
+``.evaluate``) against the TPU log's first, ``detectax_torch.`` read as
+``detectax.``, the path-valued flags (`PATH_FLAGS`) and the flags of a
+run rather than a recipe (`RUN_FLAGS`: ``--resume``, ``--seed``) set
+aside. ``recipe_equal`` is whether every such line matches, and
+``recipe_diff`` names each flag that differs with the row's and the TPU's
+values (null where a flag is absent); both are null where either log
+holds no training command line.
 """
 from __future__ import annotations
 
@@ -34,6 +42,14 @@ import json
 import re
 
 LOSSES = ("cls", "reg", "cen", "total")
+# flags whose values are paths of one machine, and flags of one run
+PATH_FLAGS = ("--ckpt_dir", "--out_dir", "--init_backbone")
+RUN_FLAGS = ("--resume", "--seed")
+
+
+def _is_training(line: str) -> bool:
+    return line.startswith("$ ") and " -m " in line and (
+        ".evaluate" not in line)
 
 
 def display_steps(path: str, *, first_run: bool = False) -> dict:
@@ -44,8 +60,7 @@ def display_steps(path: str, *, first_run: bool = False) -> dict:
     runs = 0
     with open(path) as f:
         for line in f:
-            if line.startswith("$ ") and " -m " in line and (
-                    ".evaluate" not in line):
+            if _is_training(line):
                 runs += 1
                 if first_run and runs > 1:
                     break
@@ -56,6 +71,46 @@ def display_steps(path: str, *, first_run: bool = False) -> dict:
                 steps[int(m.group(1))] = {k: float(v)
                                           for k, v in fields.items()}
     return steps
+
+
+def recipes(path: str) -> list:
+    """The recipe of each training command line of ``path``: {"-m":
+    module, flag: [values]}, the module's ``detectax_torch.`` read as
+    ``detectax.``, a repeated flag's last values winning (as argparse
+    takes them), `PATH_FLAGS` and `RUN_FLAGS` left out."""
+    out = []
+    with open(path) as f:
+        for line in f:
+            if not _is_training(line):
+                continue
+            words = line.split()
+            words = words[words.index("-m") + 1:]
+            recipe = {"-m": [re.sub(r"^detectax_torch\.", "detectax.",
+                                    words[0])]}
+            flag = None
+            for w in words[1:]:
+                if w.startswith("--"):
+                    flag = w
+                    recipe[flag] = []
+                elif flag is not None:
+                    recipe[flag].append(w)
+            for k in PATH_FLAGS + RUN_FLAGS:
+                recipe.pop(k, None)
+            out.append(recipe)
+    return out
+
+
+def compare_recipes(row: list, tpu: list) -> dict:
+    """``recipe_equal`` and ``recipe_diff`` ({flag: {"row", "tpu"}}) of
+    every recipe in ``row`` against the first in ``tpu``."""
+    if not row or not tpu:
+        return {"recipe_equal": None, "recipe_diff": None}
+    diff = {}
+    for r in row:
+        for k in sorted(set(r) | set(tpu[0])):
+            if r.get(k) != tpu[0].get(k):
+                diff.setdefault(k, {"row": r.get(k), "tpu": tpu[0].get(k)})
+    return {"recipe_equal": not diff, "recipe_diff": diff}
 
 
 def _num_pos(pairs) -> dict:
@@ -107,7 +162,9 @@ def main(argv=None) -> dict:
                                    first_run=args.tpu_run == "first"),
                      from_step=args.from_step, shift=args.shift)
     result = {"row_log": args.row_log, "tpu_log": args.tpu_log,
-              "tpu_run": args.tpu_run, **result}
+              "tpu_run": args.tpu_run, **result,
+              **compare_recipes(recipes(args.row_log),
+                                recipes(args.tpu_log))}
     print(json.dumps(result))
     if args.out:
         with open(args.out, "w") as f:

@@ -471,3 +471,54 @@ def test_detbench_logs_holds_a_row_against_the_tpu_logs_last_run(tmp_path):
     # the row's run (from line 83), then the run evaluated at 0.6448
     assert runs[1][4000]["total"] == 1.3647
     assert runs[0][4000]["total"] == 1.2954
+
+
+_TPU_TRAIN = ("$ /usr/bin/python -u -m detectax.cli.train_hourglass_voc "
+              "--dataset detbench_v2 --ckpt_dir /a/ckpt --out_dir /a/out "
+              "--init_lr 1e-3 --lr_boundaries 3000 3500 --bf16\n")
+_ROW_TRAIN = ("$ /usr/bin/python3 -u -m "
+              "detectax_torch.cli.train_hourglass_voc --dataset detbench_v2 "
+              "--ckpt_dir /tmp/b/ckpt --out_dir /tmp/b/out --init_lr {lr} "
+              "--lr_boundaries 3000 3500 {bf16}{extra}\n")
+
+
+@pytest.mark.parametrize("case", ["equal", "init_lr", "resumed", "no_bf16"])
+def test_detbench_logs_holds_the_rows_recipe_against_the_tpu_logs(tmp_path,
+                                                                  case):
+    """`detbench_logs.py`'s recipe check: every training command line of
+    the row's log against the TPU log's first, the port's module read as
+    the JAX one's, paths and the run flags (``--resume``, ``--seed``) set
+    aside; a changed or missing flag reads unequal and is named."""
+    import detbench_logs
+
+    evaluate = "$ python -u -m detectax.cli.evaluate --family x --init_lr 9\n"
+    tpu = tmp_path / "tpu.txt"
+    tpu.write_text(_TPU_TRAIN + _display(100, 5, 4.0) + evaluate
+                   + _TPU_TRAIN.replace("1e-3", "0.5"))
+    line = dict(lr="1e-3", bf16="--bf16", extra="")
+    lines = [line]
+    if case == "init_lr":
+        lines = [dict(line, lr="0.01")]
+    elif case == "resumed":
+        lines = [dict(line, extra=" --seed 0"),
+                 dict(line, extra=" --resume --seed 0")]
+    elif case == "no_bf16":
+        lines = [dict(line, bf16="")]
+    row = tmp_path / "row.txt"
+    row.write_text("".join(_ROW_TRAIN.format(**x) + _display(100, 5, 4.0)
+                           for x in lines) + evaluate)
+    got = detbench_logs.main([str(row), str(tpu)])
+    want = {"equal": {}, "resumed": {},
+            "init_lr": {"--init_lr": {"row": ["0.01"], "tpu": ["1e-3"]}},
+            "no_bf16": {"--bf16": {"row": None, "tpu": []}}}[case]
+    assert got["recipe_diff"] == want
+    assert got["recipe_equal"] is (not want)
+    assert len(detbench_logs.recipes(str(row))) == len(lines)
+    assert detbench_logs.recipes(str(tpu))[0]["-m"] == [
+        "detectax.cli.train_hourglass_voc"]
+    # a log without a training command line holds no recipe
+    bare = tmp_path / "bare.txt"
+    bare.write_text(_display(100, 5, 4.0))
+    assert detbench_logs.compare_recipes(
+        detbench_logs.recipes(str(bare)), detbench_logs.recipes(str(tpu))
+    ) == {"recipe_equal": None, "recipe_diff": None}
