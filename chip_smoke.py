@@ -235,10 +235,10 @@ order:
    at batch 16, 384 px at batch 32; `check_focal_group`'s tolerances);
    then in this process, at full width (FCOS-R50, 384 px, batch
    16, bf16): `detectax_torch.bench.mfu_breakdown` ``--only phases`` (4
-   steps in 2 windows: the seven rows, every graph's ms above 0,
-   ``0 < mfu_pct <= 100`` but on the assignment, which counts 0
-   operations, full step >= grad >= forward+loss within the windows'
-   spread), ``--only canvas`` and ``--only levers`` (2 steps an arm),
+   steps in 4 windows, one window of each graph a round: the seven rows,
+   every graph's ms above 0, ``0 < mfu_pct <= 100`` but on the
+   assignment, which counts 0 operations, full step >= grad >=
+   forward+loss within the windows' spread), ``--only canvas`` and ``--only levers`` (2 steps an arm),
    `config_frontier` (all eight arms), `s2d_ab` and `pool_ab` (2 steps an
    arm; their switches restored; the s2d arm's own count above the plain
    stem's), `latency_reconcile` (three protocols finite and above 0, one
@@ -4443,7 +4443,7 @@ def pretrain_driver_path() -> tuple[dict, dict]:
 S2D_RTOL = 1e-4    # of the output's largest magnitude (fp32, TF32 off);
                    # the step's loss, relative
 S2D_TIME_REPS = 20
-LEVER_PHASE_STEPS, LEVER_PHASE_WINDOWS = 4, 2   # mfu_breakdown --only phases
+LEVER_PHASE_STEPS, LEVER_PHASE_WINDOWS = 4, 4   # mfu_breakdown --only phases
 LEVER_STEPS, LEVER_WINDOWS = 2, 2   # every other lever program's arms
 DIAG_STEPS, DIAG_CLASSES = 2, 3     # cli.train_fcos; the synthetic classes
 DIAG_DENSE_ATOL = 1e-4

@@ -27,8 +27,8 @@ of the detection training alone.
 Writes ``DIR/result.json`` (the card, the wall times, the losses of every
 display step and the eval summary) and ``DIR/train.log``; the checkpoint
 and the DetBench cache go to a temporary directory that is removed at the
-end unless ``--keep``. Runs on one CUDA device. `run` is the scaffolding
-that `detbench_retinanet.py` shares.
+end unless ``--keep``. Runs on one CUDA device. `run` is the scaffolding:
+the cache, the trainer, the evaluation and the result file.
 """
 from __future__ import annotations
 

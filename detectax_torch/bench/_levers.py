@@ -14,7 +14,9 @@ Timing (`time_fn`) is the JAX program's: two warm-up calls, then
 window closed by a value fetch (a float of the first element of the first
 parameter after train steps, of the first output otherwise), which waits
 for the card; the result is the least seconds a call over the windows,
-with every window's.
+with every window's. `time_rounds` times several graphs so, their windows
+interleaved round by round (a deviation: the JAX program times one graph's
+windows after another's).
 
 ``mfu_pct`` is the graph's convolution and matmul operations counted by
 `torch.utils.flop_counter.FlopCounterMode` (`count_flops`, the count of
@@ -75,20 +77,35 @@ def time_fn(fn: Callable, state, data: dict, steps: int, windows: int,
     """`_time_fn`: (least seconds a call, every window's seconds a call) of
     ``fn(state, data)``. ``carry_state``: ``fn`` is a train step, which
     updates ``state`` in place, and a window closes on its parameters."""
-    fetch_state = state if carry_state else None
-    out = None
-    for _ in range(WARMUP_CALLS):
-        out = fn(state, data)
-        force(out, fetch_state)
-    per = max(1, steps // windows)
-    times = []
-    for _ in range(windows):
+    return time_rounds({"": (fn, carry_state)}, state, data, steps,
+                       windows)[""]
+
+
+def time_rounds(graphs: dict, state, data: dict, steps: int,
+                windows: int) -> dict:
+    """`time_fn` of several graphs (name -> ``(fn, carry_state)``) with
+    their windows interleaved: every graph's warm-up calls, then
+    ``windows`` rounds, each timing one window of every graph in turn, so
+    that a change in the host's speed during the run falls on every graph
+    alike. Returns name -> (least seconds a call, every window's)."""
+    def window(fn, fetch_state, calls):
         t0 = time.perf_counter()
-        for _ in range(per):
+        for _ in range(calls):
             out = fn(state, data)
         force(out, fetch_state)
-        times.append((time.perf_counter() - t0) / per)
-    return min(times), times
+        return (time.perf_counter() - t0) / calls
+
+    fetch = {name: state if carry else None
+             for name, (_, carry) in graphs.items()}
+    for name, (fn, _) in graphs.items():
+        for _ in range(WARMUP_CALLS):
+            window(fn, fetch[name], 1)
+    per = max(1, steps // windows)
+    times = {name: [] for name in graphs}
+    for _ in range(windows):
+        for name, (fn, _) in graphs.items():
+            times[name].append(window(fn, fetch[name], per))
+    return {name: (min(t), t) for name, t in times.items()}
 
 
 def count_flops(fn: Callable, state, data: dict) -> int:

@@ -26,11 +26,15 @@ The counterpart of `benchmarks/mfu_breakdown.py`, under its JSON keys:
    as the JAX program records a rejected option, and the program then
    exits 1: every arm here is required.
 
-Each graph is timed by `_levers.time_fn` (min of windows, each closed by
-a value fetch, two warm-up calls). ``mfu_pct`` is the graph's convolution
-and matmul operations counted by `FlopCounterMode` (`_levers.count_flops`,
-`bench.train.step_flops`'s count) over the time and 989 TFLOP/s, not
-XLA's cost analysis: the assignment has neither, so its row counts 0.
+The five graphs are timed together by `_levers.time_rounds` (min of
+windows, each closed by a value fetch, two warm-up calls), one window of
+each graph a round: the eager step is bound by the host, whose speed can
+change within a run, and the JAX program's graph-after-graph order would
+put that change between two rows (a deviation). ``mfu_pct`` is the
+graph's convolution and matmul operations counted by `FlopCounterMode`
+(`_levers.count_flops`, `bench.train.step_flops`'s count) over the time
+and 989 TFLOP/s, not XLA's cost analysis: the assignment has neither, so
+its row counts 0.
 Each summary line adds every window's ms, the device and the card's name
 and power limit (``nvidia-smi``). It needs a CUDA device and has no CPU
 branch.
@@ -119,10 +123,12 @@ def phase_breakdown(args, device, *, img: int = _levers.IMG,
                     batch: int = _levers.BATCH,
                     backbone: str = _levers.BACKBONE) -> dict:
     parts, state, data = train.build(img, batch, backbone, device=device)
+    graphs = phase_graphs(parts)
+    timed = _levers.time_rounds(graphs, state, data, args.steps,
+                                args.windows)
     measured, windows = {}, {}
-    for name, (fn, carry) in phase_graphs(parts).items():
-        sec, times = _levers.time_fn(fn, state, data, args.steps,
-                                     args.windows, carry)
+    for name, (fn, _) in graphs.items():
+        sec, times = timed[name]
         measured[name] = (sec, _levers.count_flops(fn, state, data))
         windows[name] = [round(t * 1000, 3) for t in times]
     return emit({f"phase_breakdown_{img}px_b{batch}": phase_rows(measured),

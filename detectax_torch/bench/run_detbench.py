@@ -20,11 +20,14 @@ as ``{"error": "train stopped", "train_min": ...}`` with the newest
 checkpoint's step. ``--resume`` then hands the trainers their own
 ``--resume``: each restarts from its newest checkpoint under the run
 directory, and its row's ``train_min`` is the sum over the runs
-(``train_min_calls``), with ``resumed_from`` the step it restarted at. As
-in the JAX package, a resumed trainer's loader restarts from its seed,
-so the resumed part sees the first part's batch order again. ``--seed N``
-hands the trainers ``--seed N``. Neither flag changes an evaluate argv;
-a row made with either records its ``seed``.
+(``train_min_calls``), and ``restarts`` lists the step of every run's
+restart. As in the JAX package, a resumed trainer's loader restarts from
+its seed, so every restart below ``--steps`` starts the batch order
+again: step r + k sees batch k. ``resumed_from`` is the last such
+restart. A run that restores at ``--steps`` trains no step and only
+evaluates: it leaves ``resumed_from`` as it was and adds no minutes to
+``train_min``. ``--seed N`` hands the trainers ``--seed N``. Neither flag
+changes an evaluate argv; a row made with either records its ``seed``.
 
 Usage (a CUDA device; exits 1 without one):
     python -m detectax_torch.bench.run_detbench [--families fcos ...]
@@ -273,6 +276,7 @@ def run_families(args, runner: Runner = run) -> dict:
         ckpt_dir = os.path.join(fam_dir, "ckpt")
         train_cmd, eval_cmd = family_commands(fam, args)
         calls = []      # the minutes of the runs this one resumes
+        trains = True
         carried = {}
         if args.resume or args.seed is not None:
             carried["seed"] = args.seed or 0
@@ -282,10 +286,19 @@ def run_families(args, runner: Runner = run) -> dict:
                               if "train_min" in prior else [])
             step = CheckpointManager(ckpt_dir).latest_step()
             if step is not None:
-                carried["resumed_from"] = step
+                carried["restarts"] = prior.get(
+                    "restarts", [prior["resumed_from"]]
+                    if "resumed_from" in prior else []) + [step]
+                # restored at --steps, the trainer takes no step and its
+                # loader's restart orders no batch
+                trains = step < args.steps
+                if trains:
+                    carried["resumed_from"] = step
+                elif "resumed_from" in prior:
+                    carried["resumed_from"] = prior["resumed_from"]
 
         def total(train_min):
-            done = calls + [round(train_min, 1)]
+            done = calls + [round(train_min, 1)] if trains else calls
             split = {"train_min_calls": done} if len(done) > 1 else {}
             return round(sum(done), 1), split
 

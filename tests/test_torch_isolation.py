@@ -243,8 +243,7 @@ def _port_sources():
 
 # the port's programs at the root of the repository
 PORT_SCRIPTS = ["chip_smoke.py", "bench_torch.py", "trunk_bn_stats.py",
-                "detbench_fcos_r50.py", "detbench_retinanet.py",
-                "detbench_hourglass.py", "detbench_logs.py", "kernel_ab.py"]
+                "detbench_fcos_r50.py", "detbench_logs.py", "kernel_ab.py"]
 
 
 def test_every_root_program_of_the_port_is_scanned():

@@ -233,6 +233,36 @@ def test_phase_rows_follow_the_jax_formulas(monkeypatch, capsys):
     assert got["assign"]["mfu_pct"] == 0.0   # no convolution, no matmul
 
 
+def test_time_rounds_interleaves_the_graphs_windows(monkeypatch):
+    """Every graph's two warm-up calls, then one window of each graph a
+    round; each graph gets its least seconds a call and every window's,
+    and a train step's window closes on the state's parameters."""
+    calls, fetched = [], []
+    ticks = iter(range(100))
+    monkeypatch.setattr(_levers.time, "perf_counter",
+                        lambda: float(next(ticks)))
+
+    def graph(name):
+        def fn(state, data):
+            calls.append(name)
+            return torch.full((1,), float(len(name)))
+        return fn
+
+    real_force = _levers.force
+    monkeypatch.setattr(_levers, "force", lambda out, st=None: fetched.append(
+        st is not None) or real_force(out, st))
+    state = mock.Mock(model=torch.nn.Linear(1, 1))
+    got = _levers.time_rounds({"a": (graph("a"), False),
+                               "bb": (graph("bb"), True)},
+                              state, {}, steps=4, windows=2)
+    assert calls == ["a", "a", "bb", "bb"] + ["a", "a", "bb", "bb"] * 2
+    assert fetched == [False, False, True, True] + [False, True] * 2
+    # the clock ticks once at a window's start and once at its end
+    assert got == {"a": (0.5, [0.5, 0.5]), "bb": (0.5, [0.5, 0.5])}
+    assert _levers.time_fn(graph("c"), state, {}, 3, 3, False) == (
+        1.0, [1.0, 1.0, 1.0])
+
+
 def test_step_rows_follow_the_jax_formulas(monkeypatch, capsys):
     """A canvas row (`canvas_sweep`) and a configuration row
     (`config_frontier.measure`) from the same seconds and count."""

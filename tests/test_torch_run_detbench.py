@@ -1,5 +1,5 @@
 """The port's DetBench driver and merge tool against the JAX programs, on
-the CPU, with no trainer run.
+the CPU, with no trainer run but one.
 
 - command parity: `benchmarks/run_detbench.py`'s `main`, its `run`
   replaced by a recorder that writes a fake eval.json, for all eight
@@ -17,7 +17,12 @@ the CPU, with no trainer run.
 - ``--resume`` and ``--seed N`` add the trainers' own flags to every
   training argv and nothing to an evaluate argv; a row stopped by SIGTERM
   and resumed sums its minutes and says where it resumed and with which
-  seed, the other rows kept.
+  seed, the other rows kept;
+- a row resumed at 2,000 (and at 3,000), stopped at 4,000 and evaluated
+  in a call that trains no step keeps its last training restart as
+  ``resumed_from``, lists every restart and counts the training calls'
+  minutes alone; the tiny stacked hourglass trainer resumed at its last
+  step takes no step and rewrites no checkpoint.
 """
 import argparse
 import importlib
@@ -31,6 +36,7 @@ import types
 from unittest import mock
 
 import pytest
+import torch
 
 from detectax_torch.bench import merge_eval_into_results as TM
 from detectax_torch.bench import run_detbench as TR
@@ -292,6 +298,113 @@ def test_a_stopped_row_resumes_with_its_minutes_and_seed(roots,
     assert got["fcos"] == existing["fcos"]
     with open(args.out) as f:
         assert json.load(f) == got
+
+
+@pytest.mark.parametrize("stops, resumed_from", [
+    ([(2000, 42.5, "train"), (4000, 47.04, "train")], 2000),
+    ([(2000, 42.5, "train"), (4000, 47.04, "eval")], 2000),
+    ([(2000, 42.5, "train"), (3000, 23.0, "train"),
+      (4000, 24.04, "train")], 3000),
+], ids=["stopped_in_train", "stopped_in_eval", "restarted_at_3000"])
+def test_a_row_evaluated_in_a_call_of_its_own_keeps_its_split(
+        roots, monkeypatch, stops, resumed_from):
+    """A row stopped at step 2,000 and resumed (and stopped again at
+    3,000 in one case) until ``ckpt_4000.pt`` exists, stopped before its
+    evaluation or during it, then resumed at 4,000 in a call that trains
+    no step and only evaluates: the row keeps its last training restart
+    as ``resumed_from`` (its loader restarted from the seed there),
+    lists every restart, and its ``train_min`` sums the training calls
+    alone."""
+    _, troot = roots
+    clock = types.SimpleNamespace(now=1000.0)
+    monkeypatch.setattr(TR, "time",
+                        types.SimpleNamespace(time=lambda: clock.now))
+    args = _port_args(["--families", "stacked_hourglass"],
+                      str(troot / "trunk.npz"))
+    resume = _port_args(["--families", "stacked_hourglass", "--resume"],
+                        str(troot / "trunk.npz"))
+    ckpt = os.path.join(args.run_root, "stacked_hourglass", "ckpt")
+
+    def stopping_at(step, minutes, stage):
+        """Trains to ``step`` in ``minutes``, leaving that checkpoint
+        alone, and is stopped in ``stage``."""
+        def runner(cmd, log_path):
+            if "--family" in cmd:
+                raise TR.Stopped(15)
+            clock.now += minutes * 60
+            os.makedirs(ckpt, exist_ok=True)
+            for f in os.listdir(ckpt):
+                os.remove(os.path.join(ckpt, f))
+            open(os.path.join(ckpt, f"ckpt_{step}.pt"), "w").close()
+            if stage == "train":
+                raise TR.Stopped(15)
+            return 0
+        return runner
+
+    for i, stop in enumerate(stops):
+        with pytest.raises(TR.Stopped):
+            TR.run_families(resume if i else args, stopping_at(*stop))
+    with open(args.out) as f:
+        row = json.load(f)["stacked_hourglass"]
+    minutes = [round(m, 1) for _, m, _ in stops]
+    restarts = [step for step, _, _ in stops]
+    assert row == {"error": f"{stops[-1][2]} stopped", "train_min": 89.5,
+                   "train_min_calls": minutes, "checkpoint_step": 4000,
+                   "seed": 0, "resumed_from": resumed_from,
+                   "restarts": restarts[:-1]}
+
+    calls = []
+    recorder = _fake_runner(calls)
+
+    def evaluating(cmd, log_path):
+        if "--family" not in cmd:
+            clock.now += 0.61 * 60      # restores, takes no step
+        return recorder(cmd, log_path)
+
+    got = TR.run_families(resume, evaluating)["stacked_hourglass"]
+    assert [c[c.index("-m") + 1] for c in calls] == [
+        "detectax_torch.cli.train_hourglass_voc",
+        "detectax_torch.cli.evaluate"]
+    assert got["mAP@0.5"] == SUMMARY["mAP@0.5"]
+    assert got["resumed_from"] == resumed_from
+    assert got["restarts"] == restarts
+    assert got["train_min"] == 89.5 and got["train_min_calls"] == minutes
+    assert got["train_steps"] == 4000 and got["seed"] == 0
+
+
+def test_a_trainer_resumed_at_its_last_step_trains_nothing(tmp_path,
+                                                           capsys):
+    """The tiny stacked hourglass trainer on the CPU, two steps with a
+    checkpoint at step 2, then ``--resume`` at the same ``--max_steps``
+    (how a DetBench row that is only evaluated resumes it): it says where
+    it resumed, takes no step, and leaves the checkpoint as it was, bytes
+    and time stamp, with no other file beside it."""
+    from detectax_torch.cli import train_hourglass_voc
+
+    ckpt = tmp_path / "ckpt"
+    argv = ["--device", "cpu", "--variant", "stacked", "--n_filters", "4",
+            "--n_stacks", "2", "--canvas", "64", "--batch_size", "4",
+            "--synthetic_n", "8", "--max_steps", "2", "--display_step", "1",
+            "--step_save", "2", "--ckpt_dir", str(ckpt),
+            "--out_dir", str(tmp_path / "out")]
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        assert train_hourglass_voc.main(argv)["final_step"] == 2
+        saved = ckpt / "ckpt_2.pt"
+        before = (os.listdir(ckpt), saved.read_bytes(),
+                  saved.stat().st_mtime_ns)
+        capsys.readouterr()
+        again = train_hourglass_voc.main(argv + ["--resume"])
+    finally:
+        torch.set_num_threads(threads)
+    printed = capsys.readouterr().out
+    assert "resumed from checkpoint at step 2" in printed
+    assert not [line for line in printed.splitlines()
+                if line.startswith("step ")]
+    assert again["final_step"] == 2 and again["images_per_sec"] == 0.0
+    assert (os.listdir(ckpt), saved.read_bytes(),
+            saved.stat().st_mtime_ns) == before
 
 
 # --------------------------------------------------------------------------
